@@ -1,0 +1,121 @@
+"""Sub-layer engine: the step functions the executor runs, dense stacked KV.
+
+Each step is a plain function of the config, the sub-layer's weights (a
+dict of tensors, as the reference passes trees) and the activations. PyTorch
+runs them eagerly: there is no counterpart of the reference's ``jax.jit``
+executable cache and so none of its ``trace_counts`` (the port uses neither
+CUDA graphs nor ``torch.compile``).
+
+KV caches are stacked ``(n_layers, B, KV, S, hd)`` tensors. The attention
+steps write this layer's rows in place — where the reference donated the
+stacks to its jitted steps so XLA could update them in place — and return
+only the residual output. ``layer``, ``slot``, ``pos`` and ``valid_len`` are
+host integers; a decode step's per-slot positions and active mask are
+tensors on the device.
+
+Every dense FFN matmul goes through K1 (``kernels.streamed_matmul``), pinned
+and streamed placements alike: on the card that is the hand-written kernel
+for any shape (it masks ragged tiles, so the reference's block-divisibility
+veto does not carry over), on the CPU its plain version. One kernel for
+every placement keeps the tokens identical across budgets: a placement
+change never changes the order of a sum.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.streamed_matmul import streamed_matmul
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.mlp import activate
+from repro_torch.models.common import rmsnorm
+
+
+def _positions(B, T, pos, device):
+    return (pos + torch.arange(T, device=device))[None, :].expand(B, T)
+
+
+# ------------------------------------------------------------ attn
+def attn_step(cfg, w, x, kstack, vstack, layer: int, pos: int):
+    """x: (B,T,d); kstack/vstack: (L,B,KV,S,hd). Returns x + attn(x); this
+    layer's cache rows are written in place."""
+    B, T, _ = x.shape
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    out, _ = attn_mod.attention_block(
+        w["attn"], cfg, h, _positions(B, T, pos, x.device),
+        cache={"k": kstack[layer], "v": vstack[layer]}, cache_pos=pos)
+    return x + out
+
+
+def _prefill_attn_math(cfg, w, x, ck, cv, pos: int, valid_len: int):
+    """The cache-slice-independent core of a prefill attention step, shared
+    by the layer-indexed and the slot-threaded variants so they agree bit
+    for bit. Positions at or past ``pos + valid_len`` (a padded tail) are
+    kept out of the cache; causality already keeps valid queries away from
+    them. Returns the attention output."""
+    B, T, _ = x.shape
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_project(w["attn"], cfg, h,
+                                   _positions(B, T, pos, x.device))
+    attn_mod.cache_update(ck, cv, k, v, pos, valid_end=pos + valid_len)
+    o = attn_mod.attend_cached(q, ck, cv, pos)
+    return attn_mod.out_project(o.reshape(B, T, -1), w["attn"]["wo"])
+
+
+def attn_prefill_step(cfg, w, x, kstack, vstack, layer: int, pos: int,
+                      valid_len: int):
+    """Layer-major prefill attention: ``attn_step`` plus the masked cache
+    write of a padded tail chunk."""
+    return x + _prefill_attn_math(cfg, w, x, kstack[layer], vstack[layer],
+                                  pos, valid_len)
+
+
+def attn_prefill_slot_step(cfg, w, x, kstack, vstack, layer: int, slot: int,
+                           pos: int, valid_len: int):
+    """Slot-threaded layer-major prefill: x is (1, T, d), ONE admitted
+    sequence, written into row ``slot`` of the shared stacked cache."""
+    return x + _prefill_attn_math(cfg, w, x,
+                                  kstack[layer, slot:slot + 1],
+                                  vstack[layer, slot:slot + 1],
+                                  pos, valid_len)
+
+
+def attn_decode_step(cfg, w, x, kstack, vstack, layer: int, pos_vec, active):
+    """Fused multi-slot decode attention. x: (B, 1, d), one new token per
+    slot; pos_vec: (B,) int per-slot cache position; active: (B,) bool.
+    Inactive slots' caches stay untouched."""
+    B = x.shape[0]
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    ck, cv = kstack[layer], vstack[layer]
+    q, k, v = attn_mod.qkv_project(w["attn"], cfg, h, pos_vec[:, None])
+    attn_mod.cache_update_batched(ck, cv, k, v, pos_vec, active=active)
+    o = attn_mod.attend_decode(q, ck, cv, pos_vec)
+    return x + attn_mod.out_project(o.reshape(B, 1, -1), w["attn"]["wo"])
+
+
+# ------------------------------------------------------------ ffn
+def ffn_step(cfg, w, x):
+    """x + ffn(rmsnorm(x)), every matmul through K1."""
+    return x + _ffn_streamed(cfg, w["ffn"], rmsnorm(x, w["ln2"],
+                                                    cfg.norm_eps))
+
+
+def _ffn_streamed(cfg, p, h):
+    """Dense FFN with all matmuls through K1."""
+    B, T, d = h.shape
+    x2 = h.reshape(B * T, d)
+    if cfg.mlp == "swiglu":
+        hh = activate(cfg, streamed_matmul(x2, p["w_gate"]),
+                      streamed_matmul(x2, p["w_up"]))
+    else:
+        hh = activate(cfg, None, streamed_matmul(x2, p["w_up"]))
+    return streamed_matmul(hh, p["w_down"]).reshape(B, T, d)
+
+
+# ------------------------------------------------------------ ends
+def embed_step(embed, tokens):
+    return embed[tokens.to(torch.int64)]
+
+
+def head_step(cfg, final_norm, unembed, x):
+    """unembed: (d, V) — callers pass embed.T for tied embeddings."""
+    return rmsnorm(x, final_norm, cfg.norm_eps) @ unembed

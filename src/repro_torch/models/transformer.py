@@ -1,0 +1,153 @@
+"""Dense decoder-only LM: parameters, KV cache and the monolithic forward.
+
+The parameters are a nested dict with the reference's layout: per-layer
+leaves are stacked along a leading ``n_layers`` axis, so the executor
+splits them per layer exactly as the reference does. ``Transformer`` is the
+``nn.Module`` over that tree; ``forward`` is the same computation as a
+plain function of the tree, which the monolithic checks call.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp
+from repro_torch.models.common import dtype_of, dense_init, rmsnorm, tree_map
+
+
+def _check_family(cfg):
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"family={cfg.family!r} is not ported yet: this slice of the "
+            "port runs dense decoders (MoE, VLM, audio, SSM and hybrid "
+            "models are later slices)")
+
+
+# ---------------------------------------------------------------- params
+def init_layer_params(gen, cfg, dtype):
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype),
+        "attn": attn.init_attn_params(gen, cfg, dtype),
+        "ffn": mlp.init_ffn_params(gen, cfg, dtype),
+    }
+
+
+def init_params(cfg, gen: torch.Generator):
+    """Seeded random weights drawn on ``gen``'s device (the host)."""
+    _check_family(cfg)
+    dtype = dtype_of(cfg)
+    layers = None
+    for i in range(cfg.n_layers):
+        lp = init_layer_params(gen, cfg, dtype)
+        if layers is None:
+            layers = tree_map(
+                lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), lp)
+        _assign_layer(layers, lp, i)
+    p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), 1, dtype),
+         "layers": layers,
+         "final_norm": torch.ones((cfg.d_model,), dtype=dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), 0, dtype)
+    return p
+
+
+def _assign_layer(stack, lp, i):
+    for k, v in lp.items():
+        if isinstance(v, dict):
+            _assign_layer(stack[k], v, i)
+        else:
+            stack[k][i] = v
+
+
+def layer_slice(layers, i):
+    """Layer ``i``'s parameter tree (views into the stacked leaves)."""
+    return tree_map(lambda t: t[i], layers)
+
+
+# ---------------------------------------------------------------- cache
+def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
+    """Stacked (L, B, KV, S, hd) caches, zero-filled: masked positions get
+    a softmax weight of exactly 0.0, and 0 * 0 keeps them out of p @ v
+    (``torch.empty`` could hold NaN, and 0 * NaN is NaN). They live on the
+    card unless ``device="cpu"`` is passed."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------- forward
+def layer_body(lp, cfg, x, positions, cache_kv, cache_pos):
+    """One transformer layer. cache_kv: this layer's {"k", "v"} or None."""
+    h, _ = attn.attention_block(lp["attn"], cfg,
+                                rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                                positions, cache=cache_kv,
+                                cache_pos=cache_pos)
+    x = x + h
+    return x + mlp.ffn(lp["ffn"], cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+def logits_head(params, cfg, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["unembed"]
+
+
+def forward(params, cfg, batch, cache=None, cache_pos=None):
+    """Returns (logits, cache). batch: {"tokens": (B, T) int tensor};
+    cache: stacked KV dict, written in place."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = params["embed"][tokens.to(torch.int64)]
+    base = cache_pos if cache_pos is not None else 0
+    positions = (base + torch.arange(T, device=x.device))[None, :] \
+        .expand(B, T)
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        ckv = None if cache is None else {"k": cache["k"][i],
+                                          "v": cache["v"][i]}
+        x = layer_body(lp, cfg, x, positions, ckv, cache_pos)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_head(params, cfg, x), cache
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors held as (frozen) module parameters."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                setattr(self, k, _Tree(v))
+            else:
+                setattr(self, k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self):
+        return {k: (getattr(self, k).tree() if isinstance(getattr(self, k),
+                                                          _Tree)
+                    else getattr(self, k).data) for k in self._keys}
+
+
+class Transformer(nn.Module):
+    """The monolithic dense decoder as an ``nn.Module``. Its state is the
+    param tree (``tree()``) that the executor splits per sub-layer."""
+
+    def __init__(self, cfg, params):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        self.params = _Tree(params)
+
+    def tree(self):
+        return self.params.tree()
+
+    @torch.no_grad()
+    def forward(self, tokens, cache=None, cache_pos=None):
+        return forward(self.tree(), self.cfg, {"tokens": tokens},
+                       cache=cache, cache_pos=cache_pos)
