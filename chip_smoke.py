@@ -6,11 +6,19 @@
 Phases (each raises on failure; the last line is printed only if all pass):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-   builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   builds the port's CUDA kernels (K1, K2, K3: one source) from
+   ``src/repro_torch/kernels/csrc``;
 2. kernels: K1 (streamed_matmul) against its plain PyTorch version at the
    main path's shapes and at ragged shapes, bf16 and f32; row independence
    bit for bit; times of the kernel, the plain version and ``torch.matmul``
-   (the yardstick only — the port never calls it) with CUDA events;
+   (the yardstick only — the port never calls it) with CUDA events. Then
+   K2 (streamed_matmul_int8) and K3 (streamed_matmul_int4) on weights
+   quantised on the card by the port's quantisers, at the main path's
+   shapes, at qwen3-14b's FFN widths, and at ragged and odd quantisation
+   groups, bf16 and f32; row independence; their times, their plain
+   versions' times and, as context only, ``torch.matmul`` on the
+   dequantised bf16 weight (not the same function: no single PyTorch call
+   computes these, so their ``library_ms`` is null);
 3. main path: full-width, full-depth qwen2-0.5b with seeded random bf16
    weights, served through ``Session.open`` -> ``serve`` at VRAM budgets of
    2.0x, 0.5x and 0.1x of the model's weight bytes on the measured link:
@@ -24,7 +32,14 @@ Phases (each raises on failure; the last line is printed only if all pass):
    tokens;
 6. where the decode time goes at 0.1x: ``torch.profiler`` over a few
    fused decode steps, device time by kernel and the device's busy share
-   of the window (launches here are outside the counted main-path run).
+   of the window (launches here are outside the counted main-path run);
+7. the quantised main paths: the same weights with every FFN quantised by
+   the port (``weight_quant`` int8, then int4), served at 2.0x, 0.25x and
+   0.1x of that mode's own weight bytes: identical tokens across budgets,
+   the streamed-bytes ledger per dtype, K2's or K3's launch count equal to
+   three per FFN call and no K1 launch, no ``_dequant`` call, peak memory
+   within the bound, the teacher-forced check; at 0.1x in int4 also
+   overlap == sync and per-slot == fused; a profile of int4 decode.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -50,6 +65,13 @@ L2_BYTES = 50 * 2 ** 20
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),   # bf16 output rounding
        "float32": dict(rtol=1e-4, atol=5e-4)}    # f32 sum order only
 BUDGETS = (2.0, 0.5, 0.1)
+QUANT_BUDGETS = (2.0, 0.25, 0.1)
+QUANT_MODES = ("int8", "int4")
+# served tokens against the monolithic forward: each must be its
+# position's argmax up to this logit gap (bf16 near-ties; the monolithic
+# FFN runs through torch.matmul on bf16 (dequantised) weights, the served
+# one through K1 / K2 / K3 in f32)
+TF_GAP = 0.25
 N_REQ, PROMPT_LEN, NEW_TOKENS, MAX_BATCH, MAX_SEQ = 4, 64, 16, 4, 256
 ACT_ALLOWANCE = 64 * 2 ** 20
 
@@ -70,11 +92,12 @@ def card_line():
 
 # ------------------------------------------------------------ phase 1
 def build_kernels():
-    from repro_torch.kernels import streamed_matmul as k1
-    lib = k1.LIBRARY
+    from repro_torch.kernels import streamed_matmul as sm
+    lib = sm.LIBRARY
     t0 = time.perf_counter()
     lib.lib()
-    log(f"built streamed_matmul: {lib.library_path().name} "
+    log(f"built K1, K2, K3 ({', '.join(lib.symbols)}): "
+        f"{lib.library_path().name} "
         f"(nvcc {lib.build_s if lib.build_s is not None else 0.0:.2f} s)")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
@@ -102,8 +125,14 @@ def time_ms(fn, args_list, iters=None):
     return start.elapsed_time(end) / iters
 
 
-def bound(M, K, N, dtype_bytes, flops_peak):
-    byts = (M * K + K * N + M * N) * dtype_bytes
+def bound(M, K, N, dtype_bytes, flops_peak, w_bytes=None):
+    """Least ms for (M,K)@(K,N): each input byte read once and the output
+    written once over the HBM rate, or 2MNK over ``flops_peak``. ``w_bytes``
+    replaces the weight's K*N*dtype_bytes (quantised codes, scales and
+    zeros)."""
+    if w_bytes is None:
+        w_bytes = K * N * dtype_bytes
+    byts = (M * K + M * N) * dtype_bytes + w_bytes
     t_bytes = byts / PEAK_HBM_BPS * 1e3
     t_ops = 2.0 * M * N * K / flops_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -189,6 +218,125 @@ def kernel_phase():
             "check_launches": streamed_matmul.launches - before}
 
 
+def _quantise(mode, w, group=None):
+    """The port's quantiser of ``mode`` on ``w``; returns the kernel's
+    weight operands (codes, scales[, zeros])."""
+    from repro_torch.kernels import streamed_matmul as sm
+    if mode == "int8":
+        return sm.quantize_int8(w, block_k=group or sm.GROUP_SIZE)
+    return sm.quantize_int4(w, group_size=group or sm.GROUP_SIZE)
+
+
+def quant_kernel_phase():
+    """K2 and K3 against their plain versions on the card, timed at the
+    main path's and qwen3-14b's FFN shapes; ragged and odd groups; row
+    independence."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import streamed_matmul as sm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    kern = {"int8": sm.streamed_matmul_int8, "int4": sm.streamed_matmul_int4}
+    plain = {"int8": kref.streamed_matmul_int8_ref,
+             "int4": kref.streamed_matmul_int4_ref}
+    deq = {"int8": sm.dequant_int8, "int4": sm.dequant_int4}
+    before = {m: kern[m].launches for m in QUANT_MODES}
+    out = {m: {"max_abs_err": 0.0, "shapes": []} for m in QUANT_MODES}
+
+    def check(mode, tag, x, q):
+        e = check_close(f"{mode} {tag}", kern[mode](x, *q),
+                        plain[mode](x, *q), str(x.dtype).split(".")[-1])
+        out[mode]["max_abs_err"] = max(out[mode]["max_abs_err"], e)
+        return e
+
+    # the port's quantisers give the same bytes on the card as on the CPU
+    # (the CPU's are held byte for byte against the JAX package's by
+    # tests/test_torch_quant.py)
+    for (K, N) in ((700, 129), (896, 4864), (250, 64)):
+        w = torch.randn((K, N), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for mode in QUANT_MODES:
+            for a, b in zip(_quantise(mode, w), _quantise(mode, w.cpu())):
+                if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{mode} quantiser on the card "
+                                         f"differs from the CPU at "
+                                         f"({K},{N})")
+    log("quantisers on the card == on the CPU, byte for byte")
+    # ragged and odd groups, bf16 and f32 (K=700: 6 groups of 117;
+    # K=250: 2 groups of 125, the nibbles of one byte in two groups)
+    for mode in QUANT_MODES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for (M, K, N, group) in ((3, 700, 129, 128), (17, 700, 96, 128),
+                                     (1, 250, 70, 128), (65, 250, 64, 128),
+                                     (4, 250, 33, 64), (20, 56, 112, 128),
+                                     (5, 4864, 896, 64)):
+                w = torch.randn((K, N), generator=gen, device=dev)
+                x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+                check(mode, f"{dtype} ({M},{K})@({K},{N}) g{group}", x,
+                      _quantise(mode, w, group))
+        log(f"{mode} ragged/odd groups within tolerance (max |err| "
+            f"{out[mode]['max_abs_err']:.3e})")
+    # the main path's and qwen3-14b's FFN shapes, bf16, timed
+    for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
+                       (4864, 896, (1, 4, 64, 256)),
+                       (5120, 17408, (1, 4)), (17408, 5120, (1, 4))):
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5) \
+            .to(torch.bfloat16)
+        for mode in QUANT_MODES:
+            q = _quantise(mode, w)
+            w_bytes = sum(t.numel() * t.element_size() for t in q)
+            n_copies = max(2, -(-2 * L2_BYTES // w_bytes))
+            qs = [q] + [tuple(t.clone() for t in q)
+                        for _ in range(n_copies - 1)]
+            wd = deq[mode](*q).to(torch.bfloat16)   # context only
+            n_bf16 = max(2, -(-2 * L2_BYTES // (K * N * 2)))
+            wds = [wd] + [wd.clone() for _ in range(n_bf16 - 1)]
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device=dev) \
+                    .to(torch.bfloat16)
+                e = check(mode, f"bf16 ({M},{K})@({K},{N})", x, q)
+                args = [(x,) + qq for qq in qs]
+                ms = time_ms(kern[mode], args)
+                plain_ms = time_ms(plain[mode], args)
+                ctx_ms = time_ms(torch.matmul, [(x, d) for d in wds])
+                b_ms, b_by = bound(M, K, N, 2, PEAK_BF16_FLOPS,
+                                   w_bytes=w_bytes)
+                out[mode]["shapes"].append(
+                    {"M": M, "K": K, "N": N, "dtype": "bfloat16",
+                     "w_bytes": w_bytes, "max_abs_err": e, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bf16_matmul_context_ms": ctx_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+                log(f"{mode} ({M},{K})@({K},{N}) bf16 x: kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}, {w_bytes} weight bytes), max |err| {e:.3e}; "
+                    f"context, not the same function: torch.matmul on the "
+                    f"dequantised bf16 weight {ctx_ms:.4f} ms")
+            del qs, wds, wd
+        del w
+        free_cuda()
+    # row independence, both tile configurations, ragged groups too
+    for mode in QUANT_MODES:
+        for (K, N) in ((896, 4864), (4864, 896), (250, 70)):
+            w = torch.randn((K, N), generator=gen, device=dev)
+            q = _quantise(mode, w)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((256, K), generator=gen, device=dev).to(dtype)
+                full = kern[mode](x, *q)
+                for rows in ((0, 1), (3, 4), (0, 4), (5, 21), (100, 164),
+                             (0, 256)):
+                    part = kern[mode](x[rows[0]:rows[1]].contiguous(), *q)
+                    if not torch.equal(part, full[rows[0]:rows[1]]):
+                        raise AssertionError(
+                            f"{mode} rows {rows} of ({K},{N}) {dtype} "
+                            "depend on M")
+    torch.cuda.synchronize()
+    log("K2, K3 row results independent of M: bit for bit")
+    for m in QUANT_MODES:
+        out[m]["check_launches"] = kern[m].launches - before[m]
+    return out
+
+
 # ------------------------------------------------------------ phase 3-5
 def measure_link_gbps(nbytes=256 * 2 ** 20, reps=5):
     import torch
@@ -213,16 +361,18 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def expected_streamed_bytes(ex):
-    """The ledger: every pass streams exactly its tier plan's streamed
-    placements that are not pinned."""
-    total = 0
+def expected_streamed_by_dtype(ex):
+    """The ledger, by storage format (``meta["quant"]``): every pass
+    streams exactly its tier plan's streamed placements that are not
+    pinned."""
+    out = {}
     pinned = set(ex._pinned)
     for t in ex.stats.tiers_used:
-        total += sum(p.sub.weight_bytes
-                     for p in ex.schedule.tiers[t].plan.static_stream_order()
-                     if p.sub.name not in pinned)
-    return total
+        for p in ex.schedule.tiers[t].plan.static_stream_order():
+            if p.sub.name not in pinned:
+                q = p.sub.meta.get("quant", "fp16")
+                out[q] = out.get(q, 0) + p.sub.weight_bytes
+    return out
 
 
 def memory_bound(sess):
@@ -303,6 +453,8 @@ def summarise(tag, run):
            "decode_step_ms": 1e3 * dec_s / max(len(dec), 1),
            "wall_s": run["wall"],
            "streamed_mb": ex["streamed_bytes"] / 1e6,
+           "streamed_mb_by_dtype": {
+               k: v / 1e6 for k, v in ex["streamed_bytes_by_dtype"].items()},
            "staged_mb": ex["staged_bytes"] / 1e6,
            "copy_s_hidden": ex["copy_s_hidden"],
            "copy_s_exposed": ex["copy_s_exposed"],
@@ -312,10 +464,12 @@ def summarise(tag, run):
            "plans": {t: sess.schedule.tiers[t].plan.name
                      for t in st["serving"]["tiers_used"]},
            "peak_mb": run["peak"] / 1e6}
+    by_dtype = "{" + ", ".join(f"{k}: {v:.1f}" for k, v in
+                               row["streamed_mb_by_dtype"].items()) + "}"
     log(f"budget {tag}: TTFT {row['ttft_s']:.4f} s, decode "
         f"{row['decode_tps']:.2f} tok/s ({row['decode_step_ms']:.2f} ms per "
         f"step of {MAX_BATCH}), streamed {row['streamed_mb']:.1f} "
-        f"MB, staged {row['staged_mb']:.1f} MB, copy hidden "
+        f"MB {by_dtype}, staged {row['staged_mb']:.1f} MB, copy hidden "
         f"{row['copy_s_hidden']:.4f} s / exposed "
         f"{row['copy_s_exposed']:.4f} s, at use {row['at_use_mb']:.1f} MB "
         f"waited {row['at_use_s']:.4f} s, tiers {row['tiers']} "
@@ -326,8 +480,9 @@ def summarise(tag, run):
 def teacher_forced_check(cfg, params, tokens, prompts):
     """The served tokens against the port's monolithic forward on the card:
     every served token must be the argmax of the monolithic logits at its
-    position, up to a bf16 near-tie margin (the monolithic FFN runs through
-    torch.matmul, the served one through K1)."""
+    position, up to the near-tie margin ``TF_GAP`` (the monolithic FFN runs
+    through torch.matmul on bf16 weights, dequantised to bf16 where they
+    are quantised; the served one through K1, K2 or K3 in f32)."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
@@ -348,9 +503,9 @@ def teacher_forced_check(cfg, params, tokens, prompts):
         worst = max(worst, gap)
     del model, dev_params
     free_cuda()
-    if worst > 0.25:
+    if worst > TF_GAP:
         raise AssertionError(f"served tokens disagree with the monolithic "
-                             f"forward: logit gap {worst:.4f} > 0.25")
+                             f"forward: logit gap {worst:.4f} > {TF_GAP}")
     return worst
 
 
@@ -360,7 +515,6 @@ def main_path():
     from repro_torch.core import SYSTEMS, build_graph, run_install, \
         total_weight_bytes
     from repro_torch.core.executor import pin_host_tree
-    from repro_torch.kernels.streamed_matmul import streamed_matmul
     from repro_torch.models import build_model
 
     cfg = get_config("qwen2-0.5b")
@@ -385,15 +539,15 @@ def main_path():
     del run
 
     # ---- phase 3: the main path, launches counted over exactly this run
-    streamed_matmul.launches = 0
+    reset_launches()
     for frac in BUDGETS:
         run = serve_once(cfg, params, db, system, int(total * frac))
         rows.append(summarise(f"{frac}x", run))
         ex = run["sess"].executor
-        if ex.stats.streamed_bytes != expected_streamed_bytes(ex):
+        want = sum(expected_streamed_by_dtype(ex).values())
+        if ex.stats.streamed_bytes != want:
             raise AssertionError(f"{frac}x: streamed ledger "
-                                 f"{ex.stats.streamed_bytes} != plan "
-                                 f"{expected_streamed_bytes(ex)}")
+                                 f"{ex.stats.streamed_bytes} != plan {want}")
         lim, parts = memory_bound(run["sess"])
         log(f"  peak device memory {run['peak']} B <= bound {lim} B "
             f"{parts}")
@@ -403,7 +557,11 @@ def main_path():
         del ex              # the next budget's peak must not see this one
         run["sess"].close()
         runs[frac] = run
-    main_launches = streamed_matmul.launches
+    counts = read_launches()
+    main_launches = counts["K1"]
+    if counts["K2"] or counts["K3"]:
+        raise AssertionError(f"quantised kernels ran on the bf16 path: "
+                             f"{counts}")
     base = runs[2.0]["tokens"]
     for frac in BUDGETS:
         if runs[frac]["tokens"] != base:
@@ -451,11 +609,152 @@ def main_path():
 
     # ---- phase 6: where the decode time goes at 0.1x
     prof = profile_phase(cfg, params, db, system, int(total * 0.1))
+
+    # ---- phase 7: the quantised main paths
+    quant = {mode: quant_path(cfg, params, db, system, mode, base)
+             for mode in QUANT_MODES}
+    for mode in QUANT_MODES:
+        agree = quant[mode].pop("agreement")
+        log(f"{mode} greedy tokens equal to the bf16 run's: {agree:.3f} of "
+            "positions (information only: random weights quantise badly)")
     return {"rows": rows, "launches": main_launches, "link_gbps": link,
+            "profile": prof, "quant": quant}
+
+
+KERNEL_OF = {"int8": "K2", "int4": "K3"}
+
+
+def _counters():
+    from repro_torch.kernels import streamed_matmul as sm
+    return {"K1": sm.streamed_matmul, "K2": sm.streamed_matmul_int8,
+            "K3": sm.streamed_matmul_int4}
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def quantised_params(params, mode):
+    """``params`` with every layer's FFN quantised by the port's
+    quantisers, on the card, then copied back to pinned host memory; the
+    other leaves are shared, so every mode serves the same weights."""
+    import torch
+    from repro_torch.core.executor import pin_host_tree
+    from repro_torch.models.transformer import quantize_params
+    ffn = {k: v.to("cuda") for k, v in params["layers"]["ffn"].items()}
+    q = quantize_params({"layers": {"ffn": ffn}}, mode)["layers"]["ffn"]
+    q = pin_host_tree({k: v.cpu() for k, v in q.items()},
+                      torch.device("cuda"))
+    del ffn
+    free_cuda()
+    return {**params, "layers": {**params["layers"], "ffn": q}}
+
+
+def quant_path(cfg, params, db, system, mode, base):
+    """Phase 7 for one ``weight_quant`` mode; ``base`` is the bf16 run's
+    tokens (for the information-only agreement share)."""
+    from repro_torch.core import build_graph, total_weight_bytes
+    from repro_torch.models import mlp
+    t0 = time.perf_counter()
+    qparams = quantised_params(params, mode)
+    qcfg = cfg.replace(weight_quant=mode)
+    total = total_weight_bytes(build_graph(qcfg))
+    log(f"{mode}: FFN weights quantised on the card in "
+        f"{time.perf_counter() - t0:.1f} s; weight bytes {total} B")
+    kname = KERNEL_OF[mode]
+    runs, rows = {}, []
+    ffn_calls = 0
+    dequant_calls = [0]
+    real_dequant = mlp._dequant
+
+    def counting_dequant(*a, **kw):
+        dequant_calls[0] += 1
+        return real_dequant(*a, **kw)
+
+    # launches counted over exactly this mode's main-path run
+    reset_launches()
+    mlp._dequant = counting_dequant
+    try:
+        for frac in QUANT_BUDGETS:
+            run = serve_once(qcfg, qparams, db, system, int(total * frac))
+            rows.append(summarise(f"{mode} {frac}x", run))
+            ex = run["sess"].executor
+            by = dict(ex.stats.streamed_bytes_by_dtype)
+            want = expected_streamed_by_dtype(ex)
+            if by != want or sum(by.values()) != ex.stats.streamed_bytes:
+                raise AssertionError(f"{mode} {frac}x: streamed by dtype "
+                                     f"{by} != plan {want} (total "
+                                     f"{ex.stats.streamed_bytes})")
+            lim, parts = memory_bound(run["sess"])
+            log(f"  peak device memory {run['peak']} B <= bound {lim} B "
+                f"{parts}")
+            if run["peak"] > lim:
+                raise AssertionError(f"{mode} {frac}x: peak {run['peak']} "
+                                     f"> {lim}")
+            # every layer runs one attention and one FFN sub-layer call
+            ffn_calls += sum(ex.stats.engine_calls.values()) // 2
+            run["by_dtype"] = by
+            del ex
+            run["sess"].close()
+            runs[frac] = run
+    finally:
+        mlp._dequant = real_dequant
+    counts = read_launches()
+    want_counts = {k: 0 for k in counts}
+    want_counts[kname] = 3 * ffn_calls      # gate, up, down per FFN call
+    if counts != want_counts:
+        raise AssertionError(f"{mode}: launches {counts} != {want_counts} "
+                             f"(three {kname} per FFN call, nothing else)")
+    if dequant_calls[0]:
+        raise AssertionError(f"{mode}: the served path called _dequant "
+                             f"{dequant_calls[0]} times")
+    log(f"{kname} launches on the {mode} main path: {counts[kname]} == 3 x "
+        f"{ffn_calls} FFN calls; K1 and the other kernel 0; _dequant 0")
+    tokens = runs[2.0]["tokens"]
+    for frac in QUANT_BUDGETS:
+        if runs[frac]["tokens"] != tokens:
+            raise AssertionError(f"{mode}: tokens at {frac}x differ from "
+                                 "2.0x")
+    log(f"{mode} tokens identical across budgets "
+        f"{', '.join(f'{f}x' for f in QUANT_BUDGETS)}: True")
+    by01 = runs[0.1]["by_dtype"]
+    if by01.get(mode, 0) <= 0:
+        raise AssertionError(f"{mode}: no FFN bytes streamed at 0.1x "
+                             f"({by01})")
+    log(f"{mode} streamed at 0.1x by dtype: {by01} B == the plan's ledger")
+    gap = teacher_forced_check(qcfg, qparams, tokens,
+                               [r.prompt for r in runs[2.0]["reqs"]])
+    log(f"{mode} served tokens == monolithic greedy under teacher forcing "
+        f"(max logit gap {gap:.4f})")
+    flat = [t for seq in tokens for t in seq]
+    flat_base = [t for seq in base for t in seq]
+    agree = sum(a == b for a, b in zip(flat, flat_base)) / len(flat_base)
+    prof = None
+    if mode == "int4":
+        for tag, kw in (("sync", dict(overlap=False)),
+                        ("per-slot", dict(fused=False))):
+            run = serve_once(qcfg, qparams, db, system, int(total * 0.1),
+                             **kw)
+            rows.append(summarise(f"{mode} 0.1x-{tag}", run))
+            if run["tokens"] != runs[0.1]["tokens"]:
+                raise AssertionError(f"{mode} {tag} tokens differ from the "
+                                     "0.1x run")
+            log(f"{mode} {tag} == pipelined fused at 0.1x: tokens "
+                "identical")
+            run["sess"].close()
+        prof = profile_phase(qcfg, qparams, db, system, int(total * 0.1),
+                             tag=f"{mode} 0.1x")
+    return {"rows": rows, "launches": counts[kname], "total_bytes": total,
+            "teacher_forced_gap": gap, "agreement": agree,
             "profile": prof}
 
 
-def profile_phase(cfg, params, db, system, budget, steps=4):
+def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
     """Device time by kernel over ``steps`` fused decode iterations of a
     full batch, and the share of the window's wall time in which the card
     ran a kernel (copies run on their own stream and are listed apart)."""
@@ -500,22 +799,23 @@ def profile_phase(cfg, params, db, system, budget, steps=4):
         return None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1])[:6]
-    k1_us = sum(us for k, us in kernels.items()
+    mm_us = sum(us for k, us in kernels.items()
                 if "(anonymous namespace)::mm_kernel<" in k)
     out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "kernel_ms_per_step": busy / steps / 1e3,
            "kernel_launches_per_step": launches / steps,
-           "busy_share": busy / wall_us, "k1_share_of_kernel_time":
-           k1_us / busy, "copy_ms_per_step": sum(copies.values()) / steps
+           "busy_share": busy / wall_us, "mm_share_of_kernel_time":
+           mm_us / busy, "copy_ms_per_step": sum(copies.values()) / steps
            / 1e3, "host_op_ms_per_step": sum(host_ops.values()) / steps
            / 1e3, "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3}
                           for k, us in top],
            "top_host": [{"op": k[:80], "ms_per_step": us / steps / 1e3}
                         for k, us in top_host]}
-    log(f"profile 0.1x decode: {out['wall_ms_per_step']:.2f} ms per step, "
+    log(f"profile {tag} decode: {out['wall_ms_per_step']:.2f} ms per step, "
         f"{out['kernel_launches_per_step']:.0f} kernels taking "
         f"{out['kernel_ms_per_step']:.3f} ms (busy share "
-        f"{out['busy_share']:.3f}), K1 {out['k1_share_of_kernel_time']:.3f} "
+        f"{out['busy_share']:.3f}), streamed matmuls "
+        f"{out['mm_share_of_kernel_time']:.3f} "
         f"of kernel time, copies {out['copy_ms_per_step']:.3f} ms, host "
         f"time inside torch ops {out['host_op_ms_per_step']:.2f} ms")
     for row in out["top"]:
@@ -523,6 +823,21 @@ def profile_phase(cfg, params, db, system, budget, steps=4):
     for row in out["top_host"]:
         log(f"  host {row['ms_per_step']:.4f} ms/step  {row['op']}")
     return out
+
+
+def kernel_entry(name, source_line, launches, max_err, shapes, headline):
+    """One kernel's entry of the ``{"kernels": [...]}`` line: the numbers
+    at the ``headline`` shape (the up/gate projection at decode, M=4)."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/streamed_matmul.cu",
+            "replaces": f"src/repro/kernels/streamed_matmul.py:{source_line}",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": headline["ms"], "plain_ms": headline["plain_ms"],
+            "bound_ms": headline["bound_ms"],
+            "bound_by": headline["bound_by"],
+            "library_ms": headline["library_ms"],
+            "shape": [headline["M"], headline["K"], headline["N"]],
+            "shapes": shapes}
 
 
 def main() -> int:
@@ -548,25 +863,32 @@ def main() -> int:
     build_kernels()
     kern = kernel_phase()
     free_cuda()
+    qkern = quant_kernel_phase()
+    free_cuda()
+
+    def headline(shapes):
+        return next(s for s in shapes if s["M"] == 4 and s["K"] == 896)
+
     main = main_path()
-    decode = next(s for s in kern["shapes"] if s["M"] == 4
-                  and s["K"] == 896)
-    k1 = {"name": "streamed_matmul", "route": "cuda",
-          "source": "src/repro_torch/kernels/csrc/streamed_matmul.cu",
-          "replaces": "src/repro/kernels/streamed_matmul.py:95",
-          "launches": main["launches"],
-          "max_abs_err": kern["max_abs_err"],
-          "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-          "library_ms": decode["library_ms"],
-          "shape": [decode["M"], decode["K"], decode["N"]],
-          "shapes": kern["shapes"]}
     log(json.dumps({"main_path": main["rows"],
+                    "quant_paths": main["quant"],
                     "link_gbps": main["link_gbps"],
                     "profile": main["profile"],
                     "seconds": time.perf_counter() - t_start}))
+    kernels = [
+        kernel_entry("streamed_matmul", 95, main["launches"],
+                     kern["max_abs_err"], kern["shapes"],
+                     headline(kern["shapes"])),
+        kernel_entry("streamed_matmul_int8", 212,
+                     main["quant"]["int8"]["launches"],
+                     qkern["int8"]["max_abs_err"], qkern["int8"]["shapes"],
+                     headline(qkern["int8"]["shapes"])),
+        kernel_entry("streamed_matmul_int4", 289,
+                     main["quant"]["int4"]["launches"],
+                     qkern["int4"]["max_abs_err"], qkern["int4"]["shapes"],
+                     headline(qkern["int4"]["shapes"]))]
     log(card)
-    log(json.dumps({"kernels": [k1]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

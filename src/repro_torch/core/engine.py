@@ -13,18 +13,24 @@ only the residual output. ``layer``, ``slot``, ``pos`` and ``valid_len`` are
 host integers; a decode step's per-slot positions and active mask are
 tensors on the device.
 
-Every dense FFN matmul goes through K1 (``kernels.streamed_matmul``), pinned
-and streamed placements alike: on the card that is the hand-written kernel
-for any shape (it masks ragged tiles, so the reference's block-divisibility
-veto does not carry over), on the CPU its plain version. One kernel for
-every placement keeps the tokens identical across budgets: a placement
-change never changes the order of a sum.
+Every dense FFN matmul goes through the streamed matmul of its weight's
+format (``_mm_dispatch``): K1 for bf16/f32 weights, K2 for grouped int8,
+K3 for packed int4 (``kernels.streamed_matmul``), pinned and streamed
+placements alike. On the card each is a hand-written kernel for any shape
+and any quantisation grouping (they mask ragged tiles and take ragged
+groups, so the reference's divisibility and ragged-group vetoes do not
+carry over), on the CPU its plain version. One kernel for every placement
+keeps the tokens identical across budgets: a placement change never
+changes the order of a sum. The served path never dequantises a weight
+outside the kernels.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.streamed_matmul import streamed_matmul
+from repro_torch.kernels.streamed_matmul import (streamed_matmul,
+                                                 streamed_matmul_int4,
+                                                 streamed_matmul_int8)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.mlp import activate
 from repro_torch.models.common import rmsnorm
@@ -94,21 +100,33 @@ def attn_decode_step(cfg, w, x, kstack, vstack, layer: int, pos_vec, active):
 
 # ------------------------------------------------------------ ffn
 def ffn_step(cfg, w, x):
-    """x + ffn(rmsnorm(x)), every matmul through K1."""
+    """x + ffn(rmsnorm(x)), every matmul through K1, K2 or K3."""
     return x + _ffn_streamed(cfg, w["ffn"], rmsnorm(x, w["ln2"],
                                                     cfg.norm_eps))
 
 
+def _mm_dispatch(x2, p, name):
+    """One matmul through the streamed kernel of the weight's storage
+    format, dequantisation fused into the kernel for the quantised ones."""
+    w = p[name]
+    if w.dtype == torch.uint8:   # packed int4
+        return streamed_matmul_int4(x2, w, p[f"s{name[1:]}"],
+                                    p[f"z{name[1:]}"])
+    if w.dtype == torch.int8:    # grouped int8
+        return streamed_matmul_int8(x2, w, p[f"s{name[1:]}"])
+    return streamed_matmul(x2, w)
+
+
 def _ffn_streamed(cfg, p, h):
-    """Dense FFN with all matmuls through K1."""
+    """Dense FFN with all matmuls through ``_mm_dispatch``."""
     B, T, d = h.shape
     x2 = h.reshape(B * T, d)
     if cfg.mlp == "swiglu":
-        hh = activate(cfg, streamed_matmul(x2, p["w_gate"]),
-                      streamed_matmul(x2, p["w_up"]))
+        hh = activate(cfg, _mm_dispatch(x2, p, "w_gate"),
+                      _mm_dispatch(x2, p, "w_up"))
     else:
-        hh = activate(cfg, None, streamed_matmul(x2, p["w_up"]))
-    return streamed_matmul(hh, p["w_down"]).reshape(B, T, d)
+        hh = activate(cfg, None, _mm_dispatch(x2, p, "w_up"))
+    return _mm_dispatch(hh, p, "w_down").reshape(B, T, d)
 
 
 # ------------------------------------------------------------ ends

@@ -39,7 +39,7 @@ from repro_torch.models.transformer import init_cache, layer_slice
 class ExecStats:
     streamed_bytes: int = 0      # plan-accounted streamed weight bytes
     # the same bytes split by the shard's storage format (SubLayer
-    # meta["quant"]; "fp16" for every shard this slice streams)
+    # meta["quant"]: "fp16", "int8" or "int4"; attention is always "fp16")
     streamed_bytes_by_dtype: dict = field(default_factory=dict)
     at_use_bytes: int = 0        # non-streamed (CPU-engine) at-use fetches
     # host seconds those fetches blocked: the wait for the previous at-use

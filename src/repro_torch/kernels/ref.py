@@ -14,3 +14,21 @@ def streamed_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1: ``(M, K) @ (K, N)`` with both operands upcast to f32, an f32
     sum over K, and the result cast back to ``x.dtype``."""
     return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+
+
+def streamed_matmul_int8_ref(x: torch.Tensor, w_q: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """K2: ``x.f32 @ dequant_int8(w_q, scales)`` cast to ``x.dtype``; the
+    group size comes from the shapes (``g = ceil(K / G)``)."""
+    from repro_torch.kernels.streamed_matmul import dequant_int8
+    return (x.to(torch.float32) @ dequant_int8(w_q, scales)).to(x.dtype)
+
+
+def streamed_matmul_int4_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                             scales: torch.Tensor,
+                             zeros: torch.Tensor) -> torch.Tensor:
+    """K3: ``x.f32 @ dequant_int4(w_packed, scales, zeros)`` cast to
+    ``x.dtype``."""
+    from repro_torch.kernels.streamed_matmul import dequant_int4
+    w = dequant_int4(w_packed, scales, zeros)
+    return (x.to(torch.float32) @ w).to(x.dtype)

@@ -67,6 +67,22 @@ def layer_slice(layers, i):
     return tree_map(lambda t: t[i], layers)
 
 
+def quantize_params(params, weight_quant):
+    """A float param tree with every layer's FFN quantised as
+    ``init_params`` would under ``cfg.weight_quant`` (int8 codes + scales,
+    or packed int4 + scales + zeros, stacked per layer); other leaves are
+    shared with ``params``. Lets one set of weights serve every mode."""
+    if weight_quant == "fp16":
+        return params
+    ffn = params["layers"]["ffn"]
+    n_layers = next(iter(ffn.values())).shape[0]
+    per_layer = [mlp.quantize_weight_tree(layer_slice(ffn, i), weight_quant)
+                 for i in range(n_layers)]
+    stacked = {k: torch.stack([lp[k] for lp in per_layer])
+               for k in per_layer[0]}
+    return {**params, "layers": {**params["layers"], "ffn": stacked}}
+
+
 # ---------------------------------------------------------------- cache
 def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
     """Stacked (L, B, KV, S, hd) caches, zero-filled: masked positions get

@@ -12,7 +12,8 @@ into sub-layers and plans the tier table; the executor, the model
 parameters and the continuous batcher are built lazily on first use, so
 planning-only sessions never allocate weights.
 
-This slice of the port serves dense decoders greedily with bf16 weights and
+This slice of the port serves dense decoders greedily with bf16 weights, or
+with grouped int8 / packed int4 FFN weights (``cfg.weight_quant``), and
 stacked KV, on the CUDA card unless the caller passes ``device="cpu"``.
 The reference's other options raise ``NotImplementedError`` naming the
 slice of the port they belong to.
@@ -68,9 +69,8 @@ class Session:
                         "speculative-decoding")
         if faults is not None:
             _not_ported("fault injection (faults)", "faults")
-        if cfg.weight_quant != "fp16":
-            _not_ported(f"weight_quant={cfg.weight_quant!r}",
-                        "quantised-streaming")
+        if cfg.expert_quant != "none":
+            _not_ported(f"expert_quant={cfg.expert_quant!r}", "MoE")
         if prefill_mode not in (None, "layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.device = resolve_device(device)

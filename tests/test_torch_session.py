@@ -12,7 +12,11 @@ through the numpy param bridge) and serve the same numpy-seeded requests.
 - inside the port: overlap == sync, fused == per-slot decode and
   layer-major == chunk-major prefill, each bit for bit; a live
   ``update_budget`` mid-serve keeps the tokens and moves exactly
-  ``Schedule.diff``.
+  ``Schedule.diff``;
+- quantised FFN weights (``weight_quant`` int8 / int4, through K2 / K3's
+  plain versions): in fp32, tokens, ``streamed_bytes`` and
+  ``streamed_bytes_by_dtype`` equal the reference's at each budget; the
+  in-port equalities above also hold with bf16 int4 weights ("int4").
 """
 import jax
 import jax.numpy as jnp
@@ -61,10 +65,19 @@ def models():
         tp = params_from_numpy(jax.tree.map(np.asarray, jp))
         total = sum(s.weight_bytes for s in jax_graph(jcfg))
         out[dtype] = (jcfg, tcfg, jp, tp, total)
+    for key, mode, dtype in (("int4", "int4", "bfloat16"),
+                             ("int8-float32", "int8", "float32"),
+                             ("int4-float32", "int4", "float32")):
+        jcfg = jax_smoke(ARCH).replace(dtype=dtype, weight_quant=mode)
+        tcfg = torch_smoke(ARCH).replace(dtype=dtype, weight_quant=mode)
+        jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+        total = sum(s.weight_bytes for s in jax_graph(jcfg))
+        out[key] = (jcfg, tcfg, jp, tp, total)
     return out
 
 
-@pytest.fixture(params=["float32", "bfloat16"])
+@pytest.fixture(params=["float32", "bfloat16", "int4"])
 def model(models, request):
     return models[request.param]
 
@@ -123,6 +136,46 @@ def test_serve_matches_reference_fp32(models, dbs, frac):
     ex = sess.stats()["executor"]
     assert ex["at_use_bytes"] == jsess.executor.stats.at_use_bytes
     assert (ex["at_use_s"] > 0) == (ex["at_use_bytes"] > 0)
+
+
+def _expected_by_dtype(ex):
+    """The ledger split by storage format: every pass streams its tier
+    plan's streamed placements that are not pinned."""
+    out = {}
+    for t in ex.stats.tiers_used:
+        for p in ex.schedule.tiers[t].plan.static_stream_order():
+            if p.sub.name not in ex._pinned:
+                q = p.sub.meta.get("quant", "fp16")
+                out[q] = out.get(q, 0) + p.sub.weight_bytes
+    return out
+
+
+@pytest.mark.parametrize("frac", (2.0, 0.25, 0.1))
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_serve_quantised_matches_reference_fp32(models, dbs, mode, frac):
+    """Quantised FFN weights: tokens and the per-dtype streamed-bytes
+    ledger equal the reference's; FFN bytes go under the mode, streamed
+    attention under "fp16", and the buckets sum to ``streamed_bytes``."""
+    model = models[f"{mode}-float32"]
+    sess = _open(model, dbs, frac)
+    tokens = _serve(sess)
+    jsess, jtokens = _jax_serve(model, dbs, frac)
+    assert tokens == jtokens
+    st, jst = sess.stats()["serving"], jsess.stats()["serving"]
+    for key in ("streamed_bytes", "tiers_used", "engine_calls",
+                "generated_tokens"):
+        assert st[key] == jst[key], key
+    ex = sess.stats()["executor"]
+    by = ex["streamed_bytes_by_dtype"]
+    assert by == dict(jsess.executor.stats.streamed_bytes_by_dtype)
+    assert by == _expected_by_dtype(sess.executor)
+    assert sum(by.values()) == ex["streamed_bytes"]
+    assert set(by) <= {"fp16", mode}
+    assert all(s.meta.get("quant", "fp16") ==
+               (mode if s.kind == "ffn" else "fp16")
+               for s in sess.subs if s.kind in ("attn", "ffn"))
+    if frac == 0.1:
+        assert by.get(mode, 0) > 0
 
 
 @pytest.mark.parametrize("frac", [2.0, 0.1])
