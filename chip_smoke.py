@@ -6,7 +6,8 @@
 Phases (each raises on failure; the last line is printed only if all pass):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-   builds the port's CUDA kernels (K1, K2, K3: one source) from
+   builds the port's CUDA kernels (K1, K2, K3: one source; K4: another;
+   one nvcc per source, started together) from
    ``src/repro_torch/kernels/csrc``;
 2. kernels: K1 (streamed_matmul) against its plain PyTorch version at the
    main path's shapes and at ragged shapes, bf16 and f32; row independence
@@ -18,7 +19,14 @@ Phases (each raises on failure; the last line is printed only if all pass):
    groups, bf16 and f32; row independence; their times, their plain
    versions' times and, as context only, ``torch.matmul`` on the
    dequantised bf16 weight (not the same function: no single PyTorch call
-   computes these, so their ``library_ms`` is null);
+   computes these, so their ``library_ms`` is null). Then K4
+   (flash_attention) against its plain version over the sweep of
+   tests/test_kernels.py, at the VLM path's vision (720p encoder) and
+   language (qwen2-vl-7b at 4096 tokens) shapes, a ragged causal length
+   and Tq != Tk, bf16 and f32 (the vision and language shapes in f32 as
+   well); its results across ``block_q`` (64, 128 and the reference's 663)
+   at the vision shape in f32; its times, the plain version's and
+   ``scaled_dot_product_attention``'s (the yardstick only);
 3. main path: full-width, full-depth qwen2-0.5b with seeded random bf16
    weights, served through ``Session.open`` -> ``serve`` at VRAM budgets of
    2.0x, 0.5x and 0.1x of the model's weight bytes on the measured link:
@@ -39,7 +47,23 @@ Phases (each raises on failure; the last line is printed only if all pass):
    the streamed-bytes ledger per dtype, K2's or K3's launch count equal to
    three per FFN call and no K1 launch, no ``_dequant`` call, peak memory
    within the bound, the teacher-forced check; at 0.1x in int4 also
-   overlap == sync and per-slot == fused; a profile of int4 decode.
+   overlap == sync and per-slot == fused; a profile of int4 decode;
+8. the VLM path, vision: the VLMOpt encoder at full width (d=1280, 32
+   layers, 16 heads, seeded bf16 weights drawn on the card) encodes 720p
+   (4641 patches) through K4: 32 K4 launches per encode; peak memory of
+   the flash and the plain encode against the N^2 score bytes; flash ==
+   plain with f32 weights; K4's share of one encode's kernel time
+   (``torch.profiler``); 1440p (18564 patches) through K4;
+9. the VLM path, language: qwen2-vl-7b at its published widths and depth
+   (seeded bf16 weights drawn on the card), 1024 vision embeddings and
+   3072 text tokens with 3D positions: the no-cache forward at 4096 tokens
+   through K4 (28 launches) against the cached prefill's logits, peak
+   memory below the plain attention's, K4's share of its kernel time;
+   ``Model.prefill`` and 16 greedy
+   ``decode_step``s checked under teacher forcing against a no-cache
+   forward;
+10. planning: a planning-only ``Session`` of qwen2-vl-7b on the h100 at 4
+   and 8 GB.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -92,16 +116,21 @@ def card_line():
 
 # ------------------------------------------------------------ phase 1
 def build_kernels():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
-    lib = sm.LIBRARY
+    libs = {"K1, K2, K3": sm.LIBRARY, "K4": fa.LIBRARY}
     t0 = time.perf_counter()
-    lib.lib()
-    log(f"built K1, K2, K3 ({', '.join(lib.symbols)}): "
-        f"{lib.library_path().name} "
-        f"(nvcc {lib.build_s if lib.build_s is not None else 0.0:.2f} s)")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.lib(), libs.values()))
+    for name, lib in libs.items():
+        log(f"built {name} ({', '.join(lib.symbols)}): "
+            f"{lib.library_path().name} (nvcc "
+            f"{lib.build_s if lib.build_s is not None else 0.0:.2f} s)")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
     log(f"kernel build wall time: {time.perf_counter() - t0:.2f} s")
 
 
@@ -335,6 +364,146 @@ def quant_kernel_phase():
     for m in QUANT_MODES:
         out[m]["check_launches"] = kern[m].launches - before[m]
     return out
+
+
+# ------------------------------------------------------------ phase 2: K4
+# (B, H, KV, Tq, Tk, hd)
+FLASH_SWEEP = ((1, 4, 4, 128, 128, 64), (2, 8, 2, 256, 256, 64),
+               (1, 6, 2, 192, 192, 128))            # tests/test_kernels.py
+VISION_SHAPE = (1, 16, 16, 4641, 4641, 80)          # 720p encoder layer
+LANGUAGE_SHAPE = (1, 28, 4, 4096, 4096, 128)        # qwen2-vl-7b, T=4096
+VISION_Q_CHUNK = 663        # the reference's Q-chunk at N = 4641
+KNOB_TOL = 2e-5             # tests/test_kernels.py::test_flash_q_chunk_knob
+
+
+def flash_bound(shape, causal, dtype_bytes, flops_peak):
+    """Least ms for one attention call: q, k, v read once and o written
+    once over the HBM rate, or 4 * hd operations per visible (query, key)
+    pair (two products) over ``flops_peak``; causal counts the pairs this
+    shape's mask leaves, min(i + 1, Tk) for row i."""
+    B, H, KV, Tq, Tk, hd = shape
+    if causal:
+        n = min(Tq, Tk)
+        pairs = n * (n + 1) // 2 + max(Tq - Tk, 0) * Tk
+    else:
+        pairs = Tq * Tk
+    t_ops = 4.0 * B * H * hd * pairs / flops_peak * 1e3
+    byts = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * dtype_bytes
+    t_bytes = byts / PEAK_HBM_BPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _qkv(gen, shape, dtype, n_sets=1):
+    """``n_sets`` independent (q, k, v) on the card."""
+    import torch
+    B, H, KV, Tq, Tk, hd = shape
+    return [tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                  for s in ((B, H, Tq, hd), (B, KV, Tk, hd), (B, KV, Tk, hd)))
+            for _ in range(n_sets)]
+
+
+def flash_kernel_phase():
+    """K4 against its plain version on the card: the sweep, the VLM
+    path's shapes (timed), a ragged causal length, Tq != Tk, and the
+    Q-chunk knob."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    before = fa.flash_attention.launches
+    max_err = 0.0
+    shapes, checked = [], []
+    dtypes = (torch.bfloat16, torch.float32)
+
+    def check(tag, shape, dtype, causal, bq=64, bk=64):
+        (q, k, v), = _qkv(gen, shape, dtype)
+        out = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        dname = str(dtype).split(".")[-1]
+        e = check_close(f"K4 {tag} {shape} {dtype} causal={causal}", out,
+                        flash_attention_ref(q, k, v, causal=causal), dname)
+        checked.append({"tag": tag, "shape": list(shape), "dtype": dname,
+                        "causal": causal, "block_q": bq, "block_k": bk,
+                        "max_abs_err": e})
+        return e
+
+    for shape in FLASH_SWEEP:
+        for dtype in dtypes:
+            for causal in (True, False):
+                max_err = max(max_err, check("sweep", shape, dtype, causal))
+    # ragged: no chunk divides 2081; Tq != Tk both ways (positions from 0)
+    for shape, causal, bq, bk in (((1, 28, 4, 2081, 2081, 128), True,
+                                   1024, 1024),
+                                  ((1, 8, 2, 300, 1000, 128), True, 128, 128),
+                                  ((1, 8, 2, 1000, 300, 80), True, 663, 1024),
+                                  ((1, 8, 2, 300, 1000, 64), False, 64, 64)):
+        for dtype in dtypes:
+            max_err = max(max_err, check("ragged", shape, dtype, causal, bq,
+                                         bk))
+    log(f"K4 sweep, ragged and Tq != Tk shapes within tolerance (max |err| "
+        f"{max_err:.3e})")
+    # the path's shapes, bf16, timed over copies larger than the L2
+    for tag, shape, causal, bq, bk in (
+            ("vision", VISION_SHAPE, False, VISION_Q_CHUNK, 1024),
+            ("language", LANGUAGE_SHAPE, True, 1024, 1024)):
+        B, H, KV, Tq, Tk, hd = shape
+        set_bytes = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * 2
+        sets = _qkv(gen, shape, torch.bfloat16,
+                    max(2, -(-2 * L2_BYTES // set_bytes)))
+        q, k, v = sets[0]
+        e = check_close(f"K4 {tag} {shape}",
+                        fa.flash_attention(q, k, v, causal=causal,
+                                           block_q=bq, block_k=bk),
+                        flash_attention_ref(q, k, v, causal=causal),
+                        "bfloat16")
+        max_err = max(max_err, e)
+        ms = time_ms(lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=causal, block_q=bq, block_k=bk), sets, iters=10)
+        plain_ms = time_ms(lambda q, k, v: flash_attention_ref(
+            q, k, v, causal=causal), sets, iters=10)
+        lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), sets, iters=10)
+        b_ms, b_by = flash_bound(shape, causal, 2, PEAK_BF16_FLOPS)
+        shapes.append({"tag": tag, "shape": list(shape), "causal": causal,
+                       "block_q": bq, "block_k": bk, "dtype": "bfloat16",
+                       "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": b_ms,
+                       "bound_by": b_by})
+        log(f"K4 {tag} {shape} causal={causal} bf16: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| "
+            f"{e:.3e}")
+        del sets, q, k, v
+        free_cuda()
+    # the language shape in f32 as well: at bf16's limit of 2e-2, about a
+    # typical |o| at this length, a lost kv tile could still pass
+    e32 = check("language", LANGUAGE_SHAPE, torch.float32, True, 1024, 1024)
+    max_err = max(max_err, e32)
+    log(f"K4 language {LANGUAGE_SHAPE} causal f32: max |err| {e32:.3e} "
+        f"within rtol {TOL['float32']['rtol']} / atol "
+        f"{TOL['float32']['atol']}")
+    # VLMOpt's knob: K4 tiles the query axis itself, block_q is only checked
+    (q, k, v), = _qkv(gen, VISION_SHAPE, torch.float32)
+    outs = {bq: fa.flash_attention(q, k, v, causal=False, block_q=bq,
+                                   block_k=1024)
+            for bq in (64, 128, VISION_Q_CHUNK)}
+    ref = outs[VISION_Q_CHUNK]
+    max_err = max(max_err, check_close(
+        f"K4 vision {VISION_SHAPE} f32", ref,
+        flash_attention_ref(q, k, v, causal=False), "float32"))
+    knob = max((o - ref).abs().max().item() for o in outs.values())
+    bit_equal = all(torch.equal(o, ref) for o in outs.values())
+    if knob > KNOB_TOL:
+        raise AssertionError(f"K4 results depend on block_q: {knob:.3e} > "
+                             f"{KNOB_TOL}")
+    log(f"K4 block_q 64, 128, {VISION_Q_CHUNK} at {VISION_SHAPE} f32: max "
+        f"|diff| {knob:.3e} <= {KNOB_TOL}; bit-equal: {bit_equal}")
+    del q, k, v, outs, ref
+    free_cuda()
+    return {"max_abs_err": max_err, "shapes": shapes, "checked": checked,
+            "block_q_max_diff": knob, "block_q_bit_equal": bit_equal,
+            "check_launches": fa.flash_attention.launches - before}
 
 
 # ------------------------------------------------------------ phase 3-5
@@ -625,9 +794,10 @@ KERNEL_OF = {"int8": "K2", "int4": "K3"}
 
 
 def _counters():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
     return {"K1": sm.streamed_matmul, "K2": sm.streamed_matmul_int8,
-            "K3": sm.streamed_matmul_int4}
+            "K3": sm.streamed_matmul_int4, "K4": fa.flash_attention}
 
 
 def reset_launches():
@@ -825,19 +995,338 @@ def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
     return out
 
 
-def kernel_entry(name, source_line, launches, max_err, shapes, headline):
+def k4_profile(tag, fn):
+    """K4's share of the device's kernel time over one call of ``fn``,
+    from ``torch.profiler`` (memory copies left out), and of the profiled
+    window's wall time, which the profiler inflates. Printed only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    free_cuda()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = k4 = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.key.lower().startswith("memcpy"):
+            continue
+        busy += e.self_device_time_total
+        if "flash_kernel<" in e.key:
+            k4 += e.self_device_time_total
+    if busy <= 0:
+        log(f"profile {tag}: the profiler saw no device time (not "
+            "measured)")
+        return None
+    out = {"wall_ms": wall_us / 1e3, "kernel_ms": busy / 1e3,
+           "k4_ms": k4 / 1e3, "k4_share_of_kernel_time": k4 / busy,
+           "busy_share": busy / wall_us}
+    log(f"profile {tag}: K4 {out['k4_ms']:.2f} ms of {out['kernel_ms']:.2f} "
+        f"ms of kernel time (share {out['k4_share_of_kernel_time']:.3f}); "
+        f"profiled wall {out['wall_ms']:.2f} ms, busy share "
+        f"{out['busy_share']:.3f}")
+    return out
+
+
+# ------------------------------------------------------------ phase 8-10
+VLM_GEN_STEPS = 16
+VLM_TEXT_TOKENS = 3072
+F32_REL_TOL = 1e-3    # f32 encoder, flash against plain, over max |out|
+
+
+def _encode(vlmopt, vc, params, res, dtype, flash):
+    """One encode of seeded patches at ``res``; returns (out, seconds,
+    peak bytes). The peak counts everything allocated, weights
+    included."""
+    import torch
+    n = vlmopt.n_vision_tokens(vc, res)
+    pg = torch.Generator(device="cuda").manual_seed(1)
+    patches = torch.randn((1, n, vc.d), generator=pg, device="cuda") \
+        .to(dtype)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = vlmopt.vision_encode(params, vc, patches, flash=flash)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (1, n, vc.d) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"{res} encode: shape {tuple(out.shape)} or "
+                             "non-finite values")
+    return out, dt, peak
+
+
+def vision_path():
+    """Phase 8: the VLMOpt encoder at full width on the card."""
+    import torch
+    from repro_torch.core import vlmopt
+    from repro_torch.models.common import tree_nbytes
+    vc = vlmopt.VisionConfig()
+    t0 = time.perf_counter()
+    params = vlmopt.init_vision_params(
+        torch.Generator(device="cuda").manual_seed(0), vc, torch.bfloat16)
+    torch.cuda.synchronize()
+    wbytes = vlmopt.vision_weight_bytes(vc)
+    log(f"vision encoder (d={vc.d}, {vc.layers} layers, {vc.heads} heads, "
+        f"hd={vc.d // vc.heads}): {tree_nbytes(params)} B of bf16 weights "
+        f"({wbytes} B of matrices) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = vlmopt.n_vision_tokens(vc, "720p")
+    score_bytes = vc.heads * n * n * 4
+    # warm-up (library loading), outside the counted run
+    vlmopt.vision_encode(params, vc, torch.zeros(
+        (1, 64, vc.d), dtype=torch.bfloat16, device="cuda"), flash=True)
+    reset_launches()
+    flash, t_flash, peak_flash = _encode(vlmopt, vc, params, "720p",
+                                         torch.bfloat16, True)
+    counts = read_launches()
+    want = {name: 0 for name in counts}
+    want["K4"] = vc.layers
+    if counts != want:
+        raise AssertionError(f"720p encode launches {counts} != {want}")
+    plain, t_plain, peak_plain = _encode(vlmopt, vc, params, "720p",
+                                         torch.bfloat16, False)
+    bf16_rel = ((flash.float() - plain.float()).abs().max()
+                / plain.float().abs().max()).item()
+    del flash, plain
+    prof = k4_profile("720p encode", lambda: _encode(
+        vlmopt, vc, params, "720p", torch.bfloat16, True))
+    demand = {f: vlmopt.vision_vram_demand(vc, "720p", offload=False,
+                                           flash=f) for f in (True, False)}
+    log(f"720p encode (N={n}): K4 launches {counts['K4']} == {vc.layers} "
+        f"layers; flash {t_flash:.4f} s, plain {t_plain:.4f} s; peak "
+        f"flash {peak_flash} B (analytic {demand[True]} B), plain "
+        f"{peak_plain} B (analytic {demand[False]} B); bf16 flash vs "
+        f"plain max |diff| / max |out| {bf16_rel:.3e}")
+    if peak_flash - wbytes >= score_bytes:
+        raise AssertionError(f"flash encode peak - weights "
+                             f"{peak_flash - wbytes} B >= the N^2 scores "
+                             f"{score_bytes} B")
+    if peak_plain - wbytes < score_bytes:
+        raise AssertionError(f"plain encode peak - weights "
+                             f"{peak_plain - wbytes} B < the N^2 scores "
+                             f"{score_bytes} B: the check has no teeth")
+    log(f"  peak - weights: flash {peak_flash - wbytes} B < {score_bytes} "
+        f"B (16 N^2 f32 scores) <= plain {peak_plain - wbytes} B")
+    # f32 weights: flash == plain up to the order of sums
+    p32 = {k: v.float() for k, v in params.items()}
+    f32_flash, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, True)
+    f32_plain, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, False)
+    rel = ((f32_flash - f32_plain).abs().max()
+           / f32_plain.abs().max()).item()
+    del p32, f32_flash, f32_plain
+    if rel > F32_REL_TOL:
+        raise AssertionError(f"f32 encoder: flash vs plain {rel:.3e} > "
+                             f"{F32_REL_TOL}")
+    log(f"720p f32 encoder: flash vs plain max |diff| / max |out| "
+        f"{rel:.3e} <= {F32_REL_TOL}")
+    # 1440p, flash only (its plain scores alone would be 22 GB per layer)
+    n1440 = vlmopt.n_vision_tokens(vc, "1440p")
+    out, t_1440, peak_1440 = _encode(vlmopt, vc, params, "1440p",
+                                     torch.bfloat16, True)
+    del out
+    demand_1440 = vlmopt.vision_vram_demand(vc, "1440p", offload=False,
+                                            flash=True)
+    log(f"1440p encode (N={n1440}) through K4: {t_1440:.4f} s, peak "
+        f"{peak_1440} B (analytic {demand_1440} B)")
+    del params
+    free_cuda()
+    return {"launches": counts["K4"], "n_720p": n,
+            "encode_s_720p": t_flash, "plain_encode_s_720p": t_plain,
+            "peak_flash_720p": peak_flash, "peak_plain_720p": peak_plain,
+            "demand_flash_720p": demand[True],
+            "demand_plain_720p": demand[False], "score_bytes": score_bytes,
+            "weight_bytes": wbytes, "bf16_rel_diff": bf16_rel,
+            "f32_rel_diff": rel, "n_1440p": n1440, "encode_s_1440p": t_1440,
+            "peak_1440p": peak_1440, "demand_flash_1440p": demand_1440,
+            "profile_720p": prof}
+
+
+def _vlm_inputs(cfg):
+    """1024 seeded vision embeddings (at the token embedding's scale) and
+    3072 seeded text tokens; vision token i at (0, i // 32, i % 32), text
+    token j at 32 + j on all three axes."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    nv, d = cfg.n_vision_tokens, cfg.d_model
+    vis = (torch.randn((1, nv, d), generator=g, device="cuda")
+           * d ** -0.5).to(torch.bfloat16)
+    text = torch.randint(0, cfg.vocab, (1, VLM_TEXT_TOKENS), generator=g,
+                         device="cuda", dtype=torch.int32)
+    i = torch.arange(nv, device="cuda")
+    vpos = torch.stack([torch.zeros_like(i), i // 32, i % 32])
+    tpos = (32 + torch.arange(VLM_TEXT_TOKENS, device="cuda"))[None] \
+        .expand(3, -1)
+    pos = torch.cat([vpos, tpos], dim=1)[:, None].to(torch.int32)
+    return {"tokens": text, "vision_embeds": vis, "positions": pos}
+
+
+def _gap(z, tokens):
+    """Largest (top logit - the token's logit) over rows of z."""
+    picked = z.gather(1, tokens[:, None])[:, 0]
+    return (z.max(dim=1).values - picked).max().item()
+
+
+def language_path():
+    """Phase 9: qwen2-vl-7b at full width on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.common import greedy_token, tree_nbytes
+    cfg = get_config("qwen2-vl-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"qwen2-vl-7b ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.resolved_head_dim}, "
+        f"f={cfg.d_ff}, vocab {cfg.vocab}, M-RoPE): {tree_nbytes(params)} B "
+        f"of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = _vlm_inputs(cfg)
+    T = cfg.n_vision_tokens + VLM_TEXT_TOKENS
+    # warm-up below the flash threshold, outside the counted run
+    model.apply(params, {"tokens": batch["tokens"][:, :64],
+                         "positions": batch["positions"][:, :, 1024:1088]})
+
+    def forward(b):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = model.apply(params, b)
+        torch.cuda.synchronize()
+        return (logits, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    # (a) the no-cache forward at T = 4096 through K4
+    reset_launches()
+    logits, t_a, peak_a = forward(batch)
+    counts = read_launches()
+    want = {name: 0 for name in counts}
+    want["K4"] = cfg.n_layers
+    if counts != want:
+        raise AssertionError(f"forward at T={T}: launches {counts} != "
+                             f"{want}")
+    if tuple(logits.shape) != (1, T, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} or "
+                             "non-finite")
+    a_tail = logits[0, -64:].float()
+    del logits
+    # (a) with the plain attention, for its peak memory
+    threshold = attention.FLASH_THRESHOLD
+    attention.FLASH_THRESHOLD = 1 << 40
+    try:
+        logits, t_plain, peak_plain = forward(batch)
+    finally:
+        attention.FLASH_THRESHOLD = threshold
+    plain_gap = _gap(logits[0, -64:].float(), a_tail.argmax(dim=1))
+    del logits
+    log(f"forward at T={T}: K4 launches {counts['K4']} == {cfg.n_layers} "
+        f"layers; {t_a:.4f} s, peak {peak_a} B; plain attention "
+        f"{t_plain:.4f} s, peak {peak_plain} B (K4's argmax within "
+        f"{plain_gap:.4f} of the plain forward's top logit)")
+    if peak_a >= peak_plain:
+        raise AssertionError(f"flash forward peak {peak_a} B >= plain "
+                             f"{peak_plain} B")
+    prof = k4_profile(f"forward at T={T}", lambda: forward(batch))
+    # the cached prefill's logits (apply with cache, cache_pos=0)
+    cache = model.init_cache(1, T + VLM_GEN_STEPS)
+    logits, _ = model.apply(params, batch, cache=cache, cache_pos=0)
+    gap_a = _gap(logits[0, -64:].float(), a_tail.argmax(dim=1))
+    del logits, cache
+    if gap_a > TF_GAP:
+        raise AssertionError(f"no-cache (K4) argmax vs cached prefill: "
+                             f"logit gap {gap_a:.4f} > {TF_GAP}")
+    log(f"no-cache forward (K4) argmax at the last 64 positions within "
+        f"{gap_a:.4f} <= {TF_GAP} of the cached prefill's top logit")
+    # (b) Model.prefill into a cache of T + 16, then 16 greedy decode steps
+    cache = model.init_cache(1, T + VLM_GEN_STEPS)
+    free_cuda()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    gen = [greedy_token(last[:, -1])]
+    t0 = time.perf_counter()
+    for s in range(VLM_GEN_STEPS):
+        p = VLM_TEXT_TOKENS + 32 + s      # the new token's 3D position
+        step = {"tokens": gen[-1][:, None],
+                "positions": torch.full((3, 1, 1), p, dtype=torch.int32,
+                                        device="cuda")}
+        logits, cache = model.decode_step(params, step, cache, T + s)
+        gen.append(greedy_token(logits[:, -1]))
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    gen = torch.cat(gen)                  # (17,) tokens
+    del cache, logits
+    # (c) one no-cache forward over the prompt and the generated tokens
+    n_new = VLM_GEN_STEPS
+    new_pos = (VLM_TEXT_TOKENS + 32 + torch.arange(n_new, device="cuda")) \
+        .to(torch.int32)[None, None].expand(3, 1, n_new)
+    full = {"tokens": torch.cat([batch["tokens"], gen[None, :n_new]], dim=1),
+            "vision_embeds": batch["vision_embeds"],
+            "positions": torch.cat([batch["positions"], new_pos], dim=2)}
+    logits, _, _ = forward(full)
+    gap_c = _gap(logits[0, T - 1:T + n_new].float(), gen.to(torch.int64))
+    del logits
+    if gap_c > TF_GAP:
+        raise AssertionError(f"greedy decode vs the no-cache forward: "
+                             f"logit gap {gap_c:.4f} > {TF_GAP}")
+    tps = VLM_GEN_STEPS / t_dec
+    log(f"prefill (Model.prefill, T={T}) {t_b:.4f} s; {VLM_GEN_STEPS} "
+        f"decode steps {tps:.2f} tok/s; the {len(gen)} greedy tokens within "
+        f"{gap_c:.4f} <= {TF_GAP} of the no-cache forward's top logit "
+        f"under teacher forcing")
+    del params, batch, full
+    free_cuda()
+    return {"launches": counts["K4"], "T": T, "forward_s": t_a,
+            "forward_peak": peak_a, "plain_forward_s": t_plain,
+            "plain_forward_peak": peak_plain, "prefill_s": t_b,
+            "decode_tps": tps, "gap_vs_cached": gap_a,
+            "gap_teacher_forced": gap_c, "gap_vs_plain": plain_gap,
+            "profile_forward": prof}
+
+
+def vlm_planning(link):
+    """Phase 10: qwen2-vl-7b's language stack planned on the h100."""
+    from repro_torch import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core import SYSTEMS, InferenceSetting, run_install
+    cfg = get_config("qwen2-vl-7b")
+    system = SYSTEMS["h100"].with_(link_gbps=link)
+    db = run_install(system)
+    out = {}
+    for gb in (4, 8):
+        sess = Session.open(cfg, system, int(gb * 1e9),
+                            InferenceSetting(batch=1, context=4096), db=db)
+        est = sess.estimates(4096)
+        out[f"{gb}GB"] = est
+        log(f"qwen2-vl-7b planning-only session, h100, {gb} GB: pinned "
+            f"{est['pinned_bytes']} B, est TTFT(4096) {est['ttft_s']:.4f} "
+            f"s, est {est['tps']:.2f} tok/s")
+    return out
+
+
+def kernel_entry(name, source_line, launches, max_err, shapes, headline,
+                 source="streamed_matmul"):
     """One kernel's entry of the ``{"kernels": [...]}`` line: the numbers
-    at the ``headline`` shape (the up/gate projection at decode, M=4)."""
+    at the ``headline`` shape (K1-K3: the up/gate projection at decode,
+    M=4; K4: the 720p vision encoder's attention)."""
+    shape = headline["shape"] if "shape" in headline else \
+        [headline["M"], headline["K"], headline["N"]]
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/streamed_matmul.cu",
-            "replaces": f"src/repro/kernels/streamed_matmul.py:{source_line}",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": f"src/repro/kernels/{source}.py:{source_line}",
             "launches": launches, "max_abs_err": max_err,
             "ms": headline["ms"], "plain_ms": headline["plain_ms"],
             "bound_ms": headline["bound_ms"],
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
-            "shape": [headline["M"], headline["K"], headline["N"]],
-            "shapes": shapes}
+            "shape": shape, "shapes": shapes}
 
 
 def main() -> int:
@@ -865,15 +1354,24 @@ def main() -> int:
     free_cuda()
     qkern = quant_kernel_phase()
     free_cuda()
+    fkern = flash_kernel_phase()
 
     def headline(shapes):
         return next(s for s in shapes if s["M"] == 4 and s["K"] == 896)
 
     main = main_path()
+    free_cuda()
+    vision = vision_path()
+    language = language_path()
+    planning = vlm_planning(main["link_gbps"])
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
                     "link_gbps": main["link_gbps"],
                     "profile": main["profile"],
+                    "vlm": {"vision": vision, "language": language,
+                            "planning": planning,
+                            "k4_block_q_bit_equal":
+                                fkern["block_q_bit_equal"]},
                     "seconds": time.perf_counter() - t_start}))
     kernels = [
         kernel_entry("streamed_matmul", 95, main["launches"],
@@ -886,7 +1384,18 @@ def main() -> int:
         kernel_entry("streamed_matmul_int4", 289,
                      main["quant"]["int4"]["launches"],
                      qkern["int4"]["max_abs_err"], qkern["int4"]["shapes"],
-                     headline(qkern["int4"]["shapes"]))]
+                     headline(qkern["int4"]["shapes"])),
+        kernel_entry("flash_attention", 104,
+                     vision["launches"] + language["launches"],
+                     fkern["max_abs_err"], fkern["shapes"],
+                     next(s for s in fkern["shapes"] if s["tag"] == "vision"),
+                     source="flash_attention")]
+    kernels[-1].update({
+        "launches_by_path": {
+            "vision_720p_encode": vision["launches"],
+            f"language_forward_T{language['T']}": language["launches"]},
+        "checked_shapes": fkern["checked"],
+        "block_q_bit_equal": fkern["block_q_bit_equal"]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

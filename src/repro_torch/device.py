@@ -1,4 +1,8 @@
-"""Where the port runs: the CUDA card unless the caller asks for the CPU."""
+"""Where the port runs: the CUDA card unless the caller asks for the CPU.
+
+``resolve_device`` is the rule for entry points; ``on_cpu`` is the one
+every kernel wrapper follows: tensors on the CPU take the plain version,
+tensors on one CUDA device take the kernel, and anything else raises."""
 from __future__ import annotations
 
 import torch
@@ -24,3 +28,24 @@ def resolve_device(device=None) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def on_cpu(name, x, *ws) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs);
+    False when all lie on one CUDA device with CUDA available (the kernel
+    runs). Anything else raises: there is no fallback."""
+    ts = (x,) + ws
+    if all(t.device.type == "cpu" for t in ts):
+        return True
+    if any(t.device.type != "cuda" for t in ts):
+        raise ValueError(f"{name}: tensors on "
+                         f"{sorted({str(t.device) for t in ts})}; "
+                         f"{'both' if len(ts) == 2 else 'all'} must be on "
+                         "the CPU or on one CUDA device")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: CUDA tensor given but CUDA is not "
+                           "available")
+    if any(t.device != x.device for t in ws):
+        raise ValueError(f"{name}: tensors on "
+                         f"{sorted({str(t.device) for t in ts})}")
+    return False

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -1e30
+
 
 def streamed_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1: ``(M, K) @ (K, N)`` with both operands upcast to f32, an f32
@@ -32,3 +34,24 @@ def streamed_matmul_int4_ref(x: torch.Tensor, w_packed: torch.Tensor,
     from repro_torch.kernels.streamed_matmul import dequant_int4
     w = dequant_int4(w_packed, scales, zeros)
     return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool) -> torch.Tensor:
+    """K4: q (B, H, Tq, hd), k and v (B, KV, Tk, hd) with H % KV == 0,
+    upcast to f32 and fully materialised: GQA through a reshape to
+    (B, KV, G, Tq, hd), f32 scores times ``hd ** -0.5``, the causal mask
+    ``kpos <= qpos`` (both from 0) at ``NEG_INF``, softmax, ``p @ v`` in
+    f32, the result in ``q.dtype``."""
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Tq, hd).to(torch.float32)
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.to(torch.float32)) \
+        * hd ** -0.5
+    if causal:
+        mask = torch.arange(Tk, device=q.device)[None, :] \
+            <= torch.arange(Tq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bksd->bkgtd", p, v.to(torch.float32))
+    return o.reshape(B, H, Tq, hd).to(q.dtype)

@@ -31,6 +31,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.device import on_cpu
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import (streamed_matmul_int4_ref,
                                      streamed_matmul_int8_ref,
@@ -163,27 +164,6 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _INT_MAX = 2 ** 31 - 1
 
 
-def _on_cpu(name, x, *ws) -> bool:
-    """True when every tensor lies on the CPU (the plain version runs);
-    False when all lie on one CUDA device with CUDA available (the kernel
-    runs). Anything else raises: there is no fallback."""
-    ts = (x,) + ws
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if any(t.device.type != "cuda" for t in ts):
-        raise ValueError(f"{name}: tensors on "
-                         f"{sorted({str(t.device) for t in ts})}; "
-                         f"{'both' if len(ts) == 2 else 'all'} must be on "
-                         "the CPU or on one CUDA device")
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"{name}: CUDA tensor given but CUDA is not "
-                           "available")
-    if any(t.device != x.device for t in ws):
-        raise ValueError(f"{name}: tensors on "
-                         f"{sorted({str(t.device) for t in ts})}")
-    return False
-
-
 def _check(name, x, w, K_w, N):
     """Shared checks of x against a (K_w, N) weight; returns (M, K, N)."""
     if x.dtype not in _SUFFIX:
@@ -217,7 +197,7 @@ def _launch(name, fn_name, x, ptrs, M, N, K, extra=()):
 def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1. x: (M, K) activations; w: (K, N) weights of x's dtype. Returns
     (M, N) in ``x.dtype``. Launch count: ``streamed_matmul.launches``."""
-    if _on_cpu("streamed_matmul", x, w):
+    if on_cpu("streamed_matmul", x, w):
         return streamed_matmul_ref(x, w)
     if w.dtype != x.dtype:
         raise ValueError(f"streamed_matmul takes bf16 or f32 of one dtype, "
@@ -238,7 +218,7 @@ def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
     f32 (``quantize_int8``). Returns ``x.f32 @ dequant_int8(w_q, scales)``
     in ``x.dtype``. Launch count: ``streamed_matmul_int8.launches``."""
     name = "streamed_matmul_int8"
-    if _on_cpu(name, x, w_q, scales):
+    if on_cpu(name, x, w_q, scales):
         return streamed_matmul_int8_ref(x, w_q, scales)
     M, K, N = _check(name, x, w_q, w_q.shape[0], w_q.shape[-1])
     if w_q.dtype != torch.int8 or scales.dtype != torch.float32:
@@ -267,7 +247,7 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
     ``x.dtype``; any group count, ragged or odd groups included. Launch
     count: ``streamed_matmul_int4.launches``."""
     name = "streamed_matmul_int4"
-    if _on_cpu(name, x, w_packed, scales, zeros):
+    if on_cpu(name, x, w_packed, scales, zeros):
         return streamed_matmul_int4_ref(x, w_packed, scales, zeros)
     M, K, N = _check(name, x, w_packed, 2 * w_packed.shape[0],
                      w_packed.shape[-1])

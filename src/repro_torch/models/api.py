@@ -29,6 +29,18 @@ class Model:
         return transformer.forward(params, self.cfg, batch, cache=cache,
                                    cache_pos=cache_pos)
 
+    # ---------------- serving steps ----------------
+    def prefill(self, params, batch, cache):
+        """Write the prompt into the cache from position 0 (in place);
+        returns (last_logits (B, 1, vocab), cache)."""
+        logits, cache = self.apply(params, batch, cache=cache, cache_pos=0)
+        return logits[:, -1:], cache
+
+    def decode_step(self, params, token_batch, cache, pos):
+        """One new token per sequence at position ``pos`` against a
+        populated cache (written in place); returns (logits, cache)."""
+        return self.apply(params, token_batch, cache=cache, cache_pos=pos)
+
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg)

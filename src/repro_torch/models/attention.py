@@ -1,4 +1,5 @@
-"""GQA/MHA attention: projection, reference, cached-chunk and decode paths.
+"""GQA/MHA attention: projection, reference, flash (K4), cached-chunk and
+decode paths.
 
 Layout conventions (the reference's, so the tests compare like with like):
   activations  (B, T, D)
@@ -11,13 +12,26 @@ the reference returns new arrays from ``dynamic_update_slice`` and relies on
 buffer donation to make that in place. Like ``dynamic_update_slice``, a
 write whose window would run past the end of the cache has its start
 clamped so the whole update fits.
+
+Without a cache, ``attend`` switches from the fully materialised
+``attend_ref`` to ``attend_flash`` (K4, ``kernels/flash_attention.py``)
+above ``FLASH_THRESHOLD`` tokens, as the reference does, so the
+(B, KV, G, T, T) f32 scores never lie in device memory at long prompts.
+The reference's ``REPRO_FORCE_REF_ATTN`` switch is a probe hook for XLA's
+cost analysis of a scan-free graph; the port has no such lowering and no
+counterpart to it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.kernels.ops import flash_attention_bthd
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                       rmsnorm)
 
+FLASH_THRESHOLD = 2048
+Q_CHUNK = 1024
+KV_CHUNK = 1024
 NEG_INF = -1e30
 
 
@@ -32,20 +46,22 @@ def init_attn_params(gen, cfg, dtype):
         "wo": dense_init(gen, (H * hd, d), 0, dtype),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H * hd,), dtype=dtype)
-        p["bk"] = torch.zeros((KV * hd,), dtype=dtype)
-        p["bv"] = torch.zeros((KV * hd,), dtype=dtype)
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=gen.device)
+        p["bk"] = torch.zeros((KV * hd,), dtype=dtype, device=gen.device)
+        p["bv"] = torch.zeros((KV * hd,), dtype=dtype, device=gen.device)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), dtype=dtype)
-        p["k_norm"] = torch.ones((hd,), dtype=dtype)
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
     return p
 
 
 def qkv_project(params, cfg, x, positions):
-    """x: (B, T, D) -> q (B,T,H,hd), k,v (B,T,KV,hd) with rope applied."""
-    if cfg.pos not in ("rope", "none"):
+    """x: (B, T, D) -> q (B,T,H,hd), k,v (B,T,KV,hd) with rope applied.
+    positions: (B, T), or (3, B, T) for M-RoPE."""
+    if cfg.pos not in ("rope", "mrope", "none"):
         raise NotImplementedError(f"pos={cfg.pos!r} is not ported yet "
-                                  "(M-RoPE lands with the VLM slice)")
+                                  "(sinusoidal positions land with the "
+                                  "audio slice)")
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -62,6 +78,9 @@ def qkv_project(params, cfg, x, positions):
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -87,9 +106,8 @@ def _softmax_pv(s, v, eq):
 # ---------------------------------------------------------------- reference
 def attend_ref(q, k, v, causal=True, q_offset=0):
     """Full-materialisation attention. q: (B,T,H,hd); k,v: (B,S,KV,hd).
-
-    The reference switches to a chunked online-softmax scan above 2048
-    tokens; the port computes every length this way (same function)."""
+    Its (B, KV, G, T, S) f32 scores grow with the square of the length;
+    ``attend`` takes ``attend_flash`` instead above ``FLASH_THRESHOLD``."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, T, KV, H // KV, hd)
@@ -101,6 +119,29 @@ def attend_ref(q, k, v, causal=True, q_offset=0):
         s = torch.where(kpos <= qpos, s, NEG_INF)
     o = _softmax_pv(s, v, "bkgts,bskd->btkgd")
     return o.reshape(B, T, H, hd)
+
+
+# ---------------------------------------------------------------- flash
+def attend_flash(q, k, v, causal=True, q_chunk=Q_CHUNK, kv_chunk=KV_CHUNK):
+    """Online-softmax attention through K4; no score tensor is stored.
+    q: (B, T, H, hd); k, v: (B, S, KV, hd). ``q_chunk`` / ``kv_chunk`` are
+    K4's ``block_q`` / ``block_k``; any lengths run (ragged chunks are
+    masked). q, k and v are upcast to f32 and ``p @ v`` sums in f32, as in
+    the Pallas kernel; the reference's jnp scan rounds p to the input dtype
+    before ``p @ v``, so the two agree to bf16 rounding in bf16 and to the
+    order of sums in f32."""
+    return flash_attention_bthd(q, k, v, causal=causal, block_q=q_chunk,
+                                block_k=kv_chunk)
+
+
+def attend(q, k, v, causal=True):
+    """The no-cache attention of a forward: ``attend_flash`` when the
+    sequence is longer than ``FLASH_THRESHOLD`` and q and k have one
+    length, else ``attend_ref`` — the reference's switch."""
+    T = q.shape[1]
+    if T > FLASH_THRESHOLD and T == k.shape[1]:
+        return attend_flash(q, k, v, causal=causal)
+    return attend_ref(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------- cached
@@ -192,7 +233,7 @@ def attention_block(params, cfg, x, positions, cache=None, cache_pos=None):
     B, T, _ = x.shape
     q, k, v = qkv_project(params, cfg, x, positions)
     if cache is None:
-        o = attend_ref(q, k, v, causal=True)
+        o = attend(q, k, v, causal=True)
     else:
         ck, cv = cache_update(cache["k"], cache["v"], k, v, cache_pos)
         if T == 1:

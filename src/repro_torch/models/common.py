@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, rotary positions, init, greedy pick."""
+"""Shared layer primitives: norms, rotary positions (RoPE, M-RoPE), init,
+greedy pick."""
 from __future__ import annotations
 
 import numpy as np
@@ -81,11 +82,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+_MROPE_AXES = {}   # (half, sections, device) -> the slot -> axis tensor
+
+
+def _mrope_axes(half: int, sections, device: torch.device) -> torch.Tensor:
+    """Which position axis (t, h, w) drives each of the ``half`` frequency
+    slots: ``sections`` scaled to ``half`` with floor, the last section
+    taking the remainder, as the reference scales them. Copied to
+    ``device`` once, as ``_device_freqs``."""
+    key = (half, tuple(sections), device)
+    if key not in _MROPE_AXES:
+        sec = np.array(sections, dtype=np.float64)
+        sec = np.floor(sec / sec.sum() * half).astype(int)
+        sec[-1] = half - sec[:-1].sum()
+        axes = np.concatenate([np.full(s, i) for i, s in enumerate(sec)])
+        _MROPE_AXES[key] = torch.from_numpy(axes).to(device)
+    return _MROPE_AXES[key]
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE. x: (..., T, H, hd); positions_3d: (3, ..., T) for
+    the (t, h, w) axes. The hd/2 frequency slots are split across the three
+    axes by ``sections`` (scaled to hd/2); the angles are f32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = _device_freqs(hd, theta, x.device)
+    axis_id = _mrope_axes(half, sections, x.device)
+    pos = torch.movedim(positions_3d, 0, -1)[..., axis_id]  # (..., T, half)
+    angles = (pos.to(torch.float32) * freqs)[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------- init
 def dense_init(gen: torch.Generator, shape, in_axis=0,
                dtype=torch.bfloat16) -> torch.Tensor:
-    """Normal(0, 1/fan_in) weights drawn on the generator's device (the
-    host, for every caller in the port) and cast to ``dtype``."""
+    """Normal(0, 1/fan_in) weights drawn on the generator's device and
+    cast to ``dtype``."""
     fan_in = shape[in_axis] if isinstance(in_axis, int) else int(
         np.prod([shape[a] for a in in_axis]))
     std = 1.0 / np.sqrt(fan_in)

@@ -1,4 +1,10 @@
-"""Dense decoder-only LM: parameters, KV cache and the monolithic forward.
+"""Dense decoder-only LM (and the VLM backbone): parameters, KV cache and
+the monolithic forward.
+
+The vlm family is the dense decoder with M-RoPE and a stub frontend, as in
+the reference: precomputed vision embeddings arrive in the batch
+(``vision_embeds``, placed in front of the token embeddings) with their 3D
+positions (``positions``, (3, B, T)); there are no vision parameters.
 
 The parameters are a nested dict with the reference's layout: per-layer
 leaves are stacked along a leading ``n_layers`` axis, so the executor
@@ -18,25 +24,25 @@ from repro_torch.models.common import dtype_of, dense_init, rmsnorm, tree_map
 
 
 def _check_family(cfg):
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
         raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet: this slice of the "
-            "port runs dense decoders (MoE, VLM, audio, SSM and hybrid "
+            f"family={cfg.family!r} is not ported yet: the port runs dense "
+            "decoders and the VLM backbone (MoE, audio, SSM and hybrid "
             "models are later slices)")
 
 
 # ---------------------------------------------------------------- params
 def init_layer_params(gen, cfg, dtype):
     return {
-        "ln1": torch.ones((cfg.d_model,), dtype=dtype),
-        "ln2": torch.ones((cfg.d_model,), dtype=dtype),
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
         "attn": attn.init_attn_params(gen, cfg, dtype),
         "ffn": mlp.init_ffn_params(gen, cfg, dtype),
     }
 
 
 def init_params(cfg, gen: torch.Generator):
-    """Seeded random weights drawn on ``gen``'s device (the host)."""
+    """Seeded random weights, every leaf made on ``gen``'s device."""
     _check_family(cfg)
     dtype = dtype_of(cfg)
     layers = None
@@ -48,7 +54,8 @@ def init_params(cfg, gen: torch.Generator):
         _assign_layer(layers, lp, i)
     p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), 1, dtype),
          "layers": layers,
-         "final_norm": torch.ones((cfg.d_model,), dtype=dtype)}
+         "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                 device=gen.device)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), 0, dtype)
     return p
@@ -114,15 +121,23 @@ def logits_head(params, cfg, x):
 
 
 def forward(params, cfg, batch, cache=None, cache_pos=None):
-    """Returns (logits, cache). batch: {"tokens": (B, T) int tensor};
+    """Returns (logits, cache). batch: {"tokens": (B, T) int tensor}, and
+    for the vlm family optionally "vision_embeds" (B, nv, d), placed in
+    front of the tokens, and "positions" (3, B, T) for M-RoPE (required);
     cache: stacked KV dict, written in place."""
     _check_family(cfg)
     tokens = batch["tokens"]
-    B, T = tokens.shape
+    B = tokens.shape[0]
     x = params["embed"][tokens.to(torch.int64)]
-    base = cache_pos if cache_pos is not None else 0
-    positions = (base + torch.arange(T, device=x.device))[None, :] \
-        .expand(B, T)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    T = x.shape[1]
+    if cfg.pos == "mrope":
+        positions = batch["positions"]
+    else:
+        base = cache_pos if cache_pos is not None else 0
+        positions = (base + torch.arange(T, device=x.device))[None, :] \
+            .expand(B, T)
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
         ckv = None if cache is None else {"k": cache["k"][i],
@@ -151,7 +166,7 @@ class _Tree(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The monolithic dense decoder as an ``nn.Module``. Its state is the
+    """The monolithic decoder as an ``nn.Module``. Its state is the
     param tree (``tree()``) that the executor splits per sub-layer."""
 
     def __init__(self, cfg, params):
@@ -164,6 +179,8 @@ class Transformer(nn.Module):
         return self.params.tree()
 
     @torch.no_grad()
-    def forward(self, tokens, cache=None, cache_pos=None):
-        return forward(self.tree(), self.cfg, {"tokens": tokens},
+    def forward(self, tokens, cache=None, cache_pos=None, **inputs):
+        """``inputs``: the vlm family's ``vision_embeds`` and
+        ``positions``."""
+        return forward(self.tree(), self.cfg, {"tokens": tokens, **inputs},
                        cache=cache, cache_pos=cache_pos)

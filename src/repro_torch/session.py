@@ -12,11 +12,13 @@ into sub-layers and plans the tier table; the executor, the model
 parameters and the continuous batcher are built lazily on first use, so
 planning-only sessions never allocate weights.
 
-This slice of the port serves dense decoders greedily with bf16 weights, or
-with grouped int8 / packed int4 FFN weights (``cfg.weight_quant``), and
-stacked KV, on the CUDA card unless the caller passes ``device="cpu"``.
-The reference's other options raise ``NotImplementedError`` naming the
-slice of the port they belong to.
+The port serves dense decoders greedily with bf16 weights, or with grouped
+int8 / packed int4 FFN weights (``cfg.weight_quant``), and stacked KV, on
+the CUDA card unless the caller passes ``device="cpu"``. A vlm session
+(qwen2-vl-7b's language stack) is planning-only, as in the reference: it
+builds the graph, the schedule and the estimates, and its executor,
+batcher, ``generate`` and ``serve`` raise. The reference's other options
+raise ``NotImplementedError`` naming the slice of the port they belong to.
 """
 from __future__ import annotations
 
@@ -55,9 +57,9 @@ class Session:
                  expert_granular: Optional[bool] = None,
                  kv_layout: Optional[str] = None,
                  draft_cfg=None, spec_k: int = 0, faults=None):
-        if cfg.family != "dense" or cfg.moe is not None:
+        if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
             _not_ported(f"family={cfg.family!r}",
-                        "MoE / VLM / audio / SSM model")
+                        "MoE / audio / SSM / hybrid model")
         if expert_granular:
             _not_ported("expert_granular=True", "expert-granular MoE")
         if kv_layout not in (None, "stacked"):
@@ -122,8 +124,14 @@ class Session:
 
     @property
     def executor(self) -> PipelinedExecutor:
-        """The bound executor (built on first use)."""
+        """The bound executor (built on first use; planning-only sessions
+        never construct it)."""
         if self._executor is None:
+            if self.cfg.family != "dense":
+                raise NotImplementedError(
+                    "the executor runs the dense family (the reference's "
+                    f"covers dense/moe); this {self.cfg.family} session is "
+                    "planning-only")
             self._executor = PipelinedExecutor(
                 self.cfg, self.params, self.schedule, max_seq=self.max_seq,
                 overlap=self.overlap, prefill_mode=self.prefill_mode,

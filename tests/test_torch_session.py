@@ -344,3 +344,25 @@ def test_unported_options_name_their_slice(model, dbs, option, kw):
         _open(model, dbs, 2.0, **kw)
     with pytest.raises(NotImplementedError, match="gateway"):
         _open(model, dbs, 2.0).gateway()
+
+
+@pytest.mark.parametrize("arch", ["qwen30b-a3b", "zamba2-7b"])
+def test_unported_families_name_their_slice(dbs, arch):
+    """MoE and hybrid models are later slices of the port."""
+    with pytest.raises(NotImplementedError, match="slice"):
+        Session.open(torch_smoke(arch), CLI2, 1 << 30, db=dbs[1],
+                     device="cpu")
+
+
+def test_vlm_session_is_planning_only(dbs):
+    """A vlm session plans (graph, schedule, estimates) and raises on
+    execution, naming the executor, as the reference asserts."""
+    sess = Session.open(torch_smoke("qwen2-vl-7b"), CLI2, 1 << 20,
+                        InferenceSetting(batch=1, context=MAX_SEQ),
+                        db=dbs[1], max_seq=MAX_SEQ, device="cpu")
+    assert sess.estimates()["pinned_bytes"] > 0
+    for use in (lambda: sess.executor, lambda: sess.batcher(),
+                lambda: sess.serve([]),
+                lambda: sess.generate(np.zeros((1, 4), np.int32))):
+        with pytest.raises(NotImplementedError, match="executor"):
+            use()
