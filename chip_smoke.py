@@ -6,13 +6,21 @@
 Phases (each raises on failure; the last line is printed only if all pass):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-   builds the port's CUDA kernels (K1, K2, K3: one source; K4: another;
-   one nvcc per source, started together) from
-   ``src/repro_torch/kernels/csrc``;
+   builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one nvcc per source, all started together: K1 in f32, K2, K3
+   (``streamed_matmul.cu``); K1 in bf16 on the tensor cores
+   (``streamed_matmul_mma.cu``); K4 on the CUDA cores (f32, and bf16 at
+   shapes the tensor-core kernel does not take: ``flash_attention.cu``);
+   K4 in bf16 on the tensor cores (``flash_attention_mma.cu``);
 2. kernels: K1 (streamed_matmul) against its plain PyTorch version at the
-   main path's shapes and at ragged shapes, bf16 and f32; row independence
-   bit for bit; times of the kernel, the plain version and ``torch.matmul``
-   (the yardstick only — the port never calls it) with CUDA events. Then
+   main path's shapes and at ragged shapes, bf16 and f32, each dtype on
+   its own kernel (per-variant launch counts); row independence bit for
+   bit, also over slices that cross M = 16 and the wrapper's 256-row
+   slicing; split-K on two streams at once equal to one stream; times of
+   the kernel (CUDA events over back-to-back calls, and
+   the kernel's own device time from ``torch.profiler``), the plain
+   version and ``torch.matmul`` (the yardstick only — the port never
+   calls it). Then
    K2 (streamed_matmul_int8) and K3 (streamed_matmul_int4) on weights
    quantised on the card by the port's quantisers, at the main path's
    shapes, at qwen3-14b's FFN widths, and at ragged and odd quantisation
@@ -24,14 +32,21 @@ Phases (each raises on failure; the last line is printed only if all pass):
    tests/test_kernels.py, at the VLM path's vision (720p encoder) and
    language (qwen2-vl-7b at 4096 tokens) shapes, a ragged causal length
    and Tq != Tk, bf16 and f32 (the vision and language shapes in f32 as
-   well); its results across ``block_q`` (64, 128 and the reference's 663)
-   at the vision shape in f32; its times, the plain version's and
+   well), bf16 on the tensor-core kernel and f32 on the CUDA-core one
+   (per-variant launch counts); bf16 also within a limit set by the
+   tensor-core kernel's rounding of p and of its output, which the
+   kernel run without its last kv tile (a planted fault, at the vision,
+   language and ragged shapes) must exceed; its results across
+   ``block_q`` (64, 128 and the reference's 663) at the vision shape in
+   f32 and in bf16; its
+   times (events and device time), the plain version's and
    ``scaled_dot_product_attention``'s (the yardstick only);
 3. main path: full-width, full-depth qwen2-0.5b with seeded random bf16
    weights, served through ``Session.open`` -> ``serve`` at VRAM budgets of
    2.0x, 0.5x and 0.1x of the model's weight bytes on the measured link:
    identical tokens across budgets, the streamed-bytes ledger, K1's launch
-   count, peak device memory within a computed bound, and the served
+   count (all on the tensor-core kernel), peak device memory within a
+   computed bound, and the served
    tokens checked against the monolithic forward under teacher forcing;
 4. live re-budget: 2.0x -> 0.1x mid-serve, tokens equal the uninterrupted
    run, moved bytes equal ``Schedule.diff``;
@@ -50,16 +65,19 @@ Phases (each raises on failure; the last line is printed only if all pass):
    overlap == sync and per-slot == fused; a profile of int4 decode;
 8. the VLM path, vision: the VLMOpt encoder at full width (d=1280, 32
    layers, 16 heads, seeded bf16 weights drawn on the card) encodes 720p
-   (4641 patches) through K4: 32 K4 launches per encode; peak memory of
-   the flash and the plain encode against the N^2 score bytes; flash ==
-   plain with f32 weights; K4's share of one encode's kernel time
+   (4641 patches) through K4: 32 K4 launches per encode, all on the
+   tensor-core kernel (the f32 encode: all on the CUDA-core one); peak
+   memory of the flash and the plain encode against the N^2 score bytes;
+   bf16 flash against plain (a coarse gate) and each layer's K4 launch
+   within the bf16-p limit on its own q, k, v, which a planted fault
+   must exceed; flash == plain with f32 weights; K4's share of one encode's kernel time
    (``torch.profiler``); 1440p (18564 patches) through K4;
 9. the VLM path, language: qwen2-vl-7b at its published widths and depth
    (seeded bf16 weights drawn on the card), 1024 vision embeddings and
    3072 text tokens with 3D positions: the no-cache forward at 4096 tokens
-   through K4 (28 launches) against the cached prefill's logits, peak
-   memory below the plain attention's, K4's share of its kernel time;
-   ``Model.prefill`` and 16 greedy
+   through K4 (28 launches, tensor cores) against the cached prefill's
+   logits, peak memory below the plain attention's, K4's share of its
+   kernel time, each layer's K4 within the bf16-p limit; ``Model.prefill`` and 16 greedy
    ``decode_step``s checked under teacher forcing against a no-cache
    forward;
 10. planning: a planning-only ``Session`` of qwen2-vl-7b on the h100 at 4
@@ -120,7 +138,8 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
-    libs = {"K1, K2, K3": sm.LIBRARY, "K4": fa.LIBRARY}
+    libs = {"K1 f32, K2, K3": sm.LIBRARY, "K1 bf16 (mma)": sm.LIBRARY_MMA,
+            "K4 (fma)": fa.LIBRARY, "K4 bf16 (mma)": fa.LIBRARY_MMA}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.lib(), libs.values()))
@@ -154,6 +173,58 @@ def time_ms(fn, args_list, iters=None):
     return start.elapsed_time(end) / iters
 
 
+# kernel names as torch.profiler reports them (each an anonymous-namespace
+# template): K1 in bf16 on the tensor cores; the f32 tile kernel that runs
+# K1 in f32, K2 and K3; K4 on the tensor cores and on the CUDA cores
+MM_MMA, MM_FMA = "::mm_mma_kernel<", "::mm_kernel<"
+FLASH_MMA, FLASH_FMA = "::flash_mma_kernel<", "::flash_kernel<"
+
+
+def profiled(fn, host=False):
+    """Run ``fn`` once under ``torch.profiler`` and synchronise; returns
+    (``key_averages()``, wall us of the window). ``host`` records the
+    host's ops as well as the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof.key_averages(), wall_us
+
+
+def kernel_us(events, names=None):
+    """Device us of the kernels in ``events`` (memory copies left out)
+    whose name holds one of ``names``; every kernel's when None."""
+    import torch
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.lower().startswith("memcpy")
+               and (names is None or any(n in e.key for n in names)))
+
+
+def device_ms(fn, args_list, names, iters=None):
+    """The kernel's own device time per call, in ms: ``torch.profiler``
+    over the same cycling calls as ``time_ms``, summing the device time of
+    the kernels named by ``names``. Unlike ``time_ms`` it leaves out the
+    host's time between launches. None when the profiler saw no such
+    kernel (not measured)."""
+    import torch
+    iters = iters or max(20, 2 * len(args_list))
+    for a in args_list[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+
+    def calls():
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    us = kernel_us(profiled(calls)[0], names)
+    return us / iters / 1e3 if us > 0 else None
+
+
 def bound(M, K, N, dtype_bytes, flops_peak, w_bytes=None):
     """Least ms for (M,K)@(K,N): each input byte read once and the output
     written once over the HBM rate, or 2MNK over ``flops_peak``. ``w_bytes``
@@ -165,6 +236,10 @@ def bound(M, K, N, dtype_bytes, flops_peak, w_bytes=None):
     t_bytes = byts / PEAK_HBM_BPS * 1e3
     t_ops = 2.0 * M * N * K / flops_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def check_close(name, out, ref, dtype):
@@ -183,10 +258,12 @@ def check_close(name, out, ref, dtype):
 def kernel_phase():
     import torch
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import streamed_matmul as sm
     from repro_torch.kernels.streamed_matmul import streamed_matmul
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     before = streamed_matmul.launches
+    reset_variants()
     max_err = 0.0
     shapes = []
     # ragged smoke shapes, bf16 and f32 (qwen2-0.5b smoke: d=56, f=112)
@@ -202,6 +279,11 @@ def kernel_phase():
                             kref.streamed_matmul_ref(x, w), dname)
             max_err = max(max_err, e)
     log(f"K1 ragged shapes within tolerance (max |err| {max_err:.3e})")
+    want = {"mma": 6, "fma": 6}         # bf16 on the tensor cores, f32 not
+    if streamed_matmul.variant_launches != want:
+        raise AssertionError(f"K1 ragged shapes took "
+                             f"{streamed_matmul.variant_launches} != {want}")
+    log(f"K1 ragged shapes by kernel: {streamed_matmul.variant_launches}")
     # the main path's shapes, bf16, timed
     for (K, N) in ((896, 4864), (4864, 896)):
         n_copies = max(2, -(-2 * L2_BYTES // (K * N * 2)))
@@ -216,14 +298,17 @@ def kernel_phase():
             max_err = max(max_err, e)
             args = [(x, w) for w in ws]
             ms = time_ms(streamed_matmul, args)
+            dev_ms = device_ms(streamed_matmul, args, (MM_MMA,))
             plain_ms = time_ms(kref.streamed_matmul_ref, args)
             lib_ms = time_ms(torch.matmul, args)
             b_ms, b_by = bound(M, K, N, 2, PEAK_BF16_FLOPS)
             shapes.append({"M": M, "K": K, "N": N, "dtype": "bfloat16",
-                           "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms, "bound_ms": b_ms,
-                           "bound_by": b_by})
-            log(f"K1 ({M},{K})@({K},{N}) bf16: kernel {ms:.4f} ms, plain "
+                           "max_abs_err": e, "ms": ms, "device_ms": dev_ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "split": list(sm.split_plan(K, N))})
+            log(f"K1 ({M},{K})@({K},{N}) bf16: kernel {ms:.4f} ms (device "
+                f"{fmt_ms(dev_ms)}, split {sm.split_plan(K, N)}), plain "
                 f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}), max |err| {e:.3e}")
         del ws
@@ -241,9 +326,48 @@ def kernel_phase():
                 if not torch.equal(part, full[rows[0]:rows[1]]):
                     raise AssertionError(
                         f"K1 rows {rows} of ({K},{N}) {dtype} depend on M")
+    # and over 600 rows, which the bf16 wrapper launches as slices of 256:
+    # slices that cross M = 16 (the two tile heights) and 256 (the slicing)
+    for (K, N) in ((896, 4864), (4864, 896), (112, 56)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((600, K), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((K, N), generator=gen, device=dev)
+                 / K ** 0.5).to(dtype)
+            full = streamed_matmul(x, w)
+            max_err = max(max_err, check_close(
+                f"K1 {dtype} (600,{K})@({K},{N})", full,
+                kref.streamed_matmul_ref(x, w), str(dtype).split(".")[-1]))
+            for rows in ((0, 16), (0, 17), (10, 30), (250, 270), (255, 257),
+                         (200, 520), (256, 600), (599, 600)):
+                part = streamed_matmul(x[rows[0]:rows[1]].contiguous(), w)
+                if not torch.equal(part, full[rows[0]:rows[1]]):
+                    raise AssertionError(
+                        f"K1 rows {rows} of 600 at ({K},{N}) {dtype} depend "
+                        "on M or on the row slicing")
     torch.cuda.synchronize()
-    log("K1 row results independent of M: bit for bit")
+    log("K1 row results independent of M: bit for bit (slices of 256 and "
+        "600 rows, across M = 16 and the 256-row slicing, bf16 and f32)")
+    # split-K on two streams at once: each stream has its own tile
+    # counters, so the calls may overlap and still give the same bits
+    for (M, K, N) in ((4, 4864, 896), (64, 4864, 896), (300, 896, 4864)):
+        x = torch.randn((M, K), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5) \
+            .to(torch.bfloat16)
+        want = streamed_matmul(x, w)
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        outs = []
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs += [streamed_matmul(x, w) for _ in range(8)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, want) for o in outs):
+            raise AssertionError(f"K1 ({M},{K})@({K},{N}) on two streams "
+                                 "at once differs from one stream")
+    log("K1 split-K on two streams at once == on one stream, bit for bit")
     return {"max_abs_err": max_err, "shapes": shapes,
+            "variant_launches": dict(streamed_matmul.variant_launches),
             "check_launches": streamed_matmul.launches - before}
 
 
@@ -393,6 +517,69 @@ def flash_bound(shape, causal, dtype_bytes, flops_peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K4 in bf16 on the tensor cores is also held to a limit set by its own
+# rounding, since TOL's 2e-2 is about a typical |o| at the path's lengths
+# (|o| ~ 0.02 at N = 4641), where a lost kv tile could pass. The kernel
+# rounds p to bf16 (unit roundoff 2^-8) before p @ v, with l summing the
+# f32 p, and rounds its output to bf16. Against the f32 attention o of the
+# same bf16 inputs an element's error is then at most 2^-8 |o| from the
+# output's rounding plus sum_j d_j v_j / l, |d_j| <= 2^-8 p_j, from p's:
+# independent roundings of scale 2^-8 sqrt(sum_j p_j^2 v_j^2) / l. The
+# limit allows twice the first and 8 times the scale of the second (which
+# bounds the second outright for rows of up to 64 visible keys, by
+# Cauchy-Schwarz), plus 1e-5 for the f32 sums' order. A sound kernel's
+# excess (max error / limit) stays at most 1; a planted fault, one kv tile
+# dropped, must go above it.
+BF16_ROUND = 2.0 ** -8
+P_ROUND_SCALES = 8.0
+F32_ORDER = 1e-5
+# the planted faults: (tag, shape, causal, block_k, keys dropped). Each
+# drops the last kv tile: the vision shape's chunk of 545 keys ends in a
+# ragged tile of 33, the language shape's last chunk in a whole tile of
+# 64, the ragged length's third chunk is one tile of 33
+PLANTED_FAULTS = (("vision", (1, 16, 16, 4641, 4641, 80), False, 1024, 33),
+                  ("language", (1, 28, 4, 4096, 4096, 128), True, 1024, 64),
+                  ("ragged", (1, 28, 4, 2081, 2081, 128), True, 1024, 33))
+
+
+def attention_f32(q, k, v, causal):
+    """The plain version's attention (``kernels/ref.py``) in f32 without
+    its final cast: o, and sqrt(p^2 @ v^2), the scale of p's rounding."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Tq, hd).float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) * hd ** -0.5
+    if causal:
+        mask = torch.arange(Tk, device=q.device)[None, :] \
+            <= torch.arange(Tq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    vf = v.float()
+    o = torch.einsum("bkgts,bksd->bkgtd", p, vf)
+    r = torch.einsum("bkgts,bksd->bkgtd", p.square_(), vf.square()).sqrt_()
+    return o.reshape(B, H, Tq, hd), r.reshape(B, H, Tq, hd)
+
+
+def p_round_excess(out, o, r):
+    """Max over elements of |out - o| / the bf16-p limit (see
+    ``BF16_ROUND``): at most 1 for a sound tensor-core K4."""
+    lim = 2 * BF16_ROUND * o.abs() + P_ROUND_SCALES * BF16_ROUND * r \
+        + F32_ORDER
+    return ((out.float() - o).abs() / lim).max().item()
+
+
+def check_p_round(name, out, q, k, v, causal):
+    """Gate a bf16 tensor-core K4 output against the bf16-p limit;
+    returns its excess."""
+    x = p_round_excess(out, *attention_f32(q, k, v, causal))
+    if not x <= 1.0:
+        raise AssertionError(f"{name}: error {x:.3f}x the bf16-p limit")
+    return x
+
+
 def _qkv(gen, shape, dtype, n_sets=1):
     """``n_sets`` independent (q, k, v) on the card."""
     import torch
@@ -412,6 +599,7 @@ def flash_kernel_phase():
     from repro_torch.kernels.ref import flash_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(2024)
     before = fa.flash_attention.launches
+    reset_variants()
     max_err = 0.0
     shapes, checked = [], []
     dtypes = (torch.bfloat16, torch.float32)
@@ -421,11 +609,16 @@ def flash_kernel_phase():
         out = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                  block_k=bk)
         dname = str(dtype).split(".")[-1]
-        e = check_close(f"K4 {tag} {shape} {dtype} causal={causal}", out,
+        name = f"K4 {tag} {shape} {dtype} causal={causal}"
+        e = check_close(name, out,
                         flash_attention_ref(q, k, v, causal=causal), dname)
-        checked.append({"tag": tag, "shape": list(shape), "dtype": dname,
-                        "causal": causal, "block_q": bq, "block_k": bk,
-                        "max_abs_err": e})
+        entry = {"tag": tag, "shape": list(shape), "dtype": dname,
+                 "causal": causal, "block_q": bq, "block_k": bk,
+                 "max_abs_err": e}
+        if dtype == torch.bfloat16:
+            entry["p_round_excess"] = check_p_round(name, out, q, k, v,
+                                                    causal)
+        checked.append(entry)
         return e
 
     for shape in FLASH_SWEEP:
@@ -441,8 +634,19 @@ def flash_kernel_phase():
         for dtype in dtypes:
             max_err = max(max_err, check("ragged", shape, dtype, causal, bq,
                                          bk))
+    excess = max(c.get("p_round_excess", 0.0) for c in checked)
     log(f"K4 sweep, ragged and Tq != Tk shapes within tolerance (max |err| "
-        f"{max_err:.3e})")
+        f"{max_err:.3e}); bf16 within the bf16-p limit (max excess "
+        f"{excess:.3f} <= 1)")
+    # bf16 on the tensor cores, f32 on the CUDA cores, every shape
+    n_each = len(checked) // 2
+    want = {"mma": n_each, "fma": n_each}
+    if fa.flash_attention.variant_launches != want:
+        raise AssertionError(f"K4 sweep and ragged shapes took "
+                             f"{fa.flash_attention.variant_launches} != "
+                             f"{want}")
+    log(f"K4 sweep, ragged and Tq != Tk shapes by kernel: "
+        f"{fa.flash_attention.variant_launches} (bf16 mma, f32 fma)")
     # the path's shapes, bf16, timed over copies larger than the L2
     for tag, shape, causal, bq, bk in (
             ("vision", VISION_SHAPE, False, VISION_Q_CHUNK, 1024),
@@ -452,14 +656,23 @@ def flash_kernel_phase():
         sets = _qkv(gen, shape, torch.bfloat16,
                     max(2, -(-2 * L2_BYTES // set_bytes)))
         q, k, v = sets[0]
+        n_mma = fa.flash_attention.variant_launches["mma"]
         e = check_close(f"K4 {tag} {shape}",
                         fa.flash_attention(q, k, v, causal=causal,
                                            block_q=bq, block_k=bk),
                         flash_attention_ref(q, k, v, causal=causal),
                         "bfloat16")
+        if fa.flash_attention.variant_launches["mma"] != n_mma + 1:
+            raise AssertionError(f"K4 {tag} {shape} bf16 did not take the "
+                                 "tensor-core kernel")
+        x = check_p_round(f"K4 {tag} {shape}", fa.flash_attention(
+            q, k, v, causal=causal, block_q=bq, block_k=bk), q, k, v, causal)
         max_err = max(max_err, e)
         ms = time_ms(lambda q, k, v: fa.flash_attention(
             q, k, v, causal=causal, block_q=bq, block_k=bk), sets, iters=10)
+        dev_ms = device_ms(lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=causal, block_q=bq, block_k=bk), sets,
+            (FLASH_MMA,), iters=10)
         plain_ms = time_ms(lambda q, k, v: flash_attention_ref(
             q, k, v, causal=causal), sets, iters=10)
         lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
@@ -467,15 +680,42 @@ def flash_kernel_phase():
         b_ms, b_by = flash_bound(shape, causal, 2, PEAK_BF16_FLOPS)
         shapes.append({"tag": tag, "shape": list(shape), "causal": causal,
                        "block_q": bq, "block_k": bk, "dtype": "bfloat16",
-                       "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                       "max_abs_err": e, "p_round_excess": x, "ms": ms,
+                       "device_ms": dev_ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": b_ms,
                        "bound_by": b_by})
-        log(f"K4 {tag} {shape} causal={causal} bf16: kernel {ms:.4f} ms, "
+        log(f"K4 {tag} {shape} causal={causal} bf16: kernel {ms:.4f} ms "
+            f"(device {fmt_ms(dev_ms)}), "
             f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
             f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |err| "
-            f"{e:.3e}")
+            f"{e:.3e}, {x:.3f}x the bf16-p limit")
         del sets, q, k, v
         free_cuda()
+    # the bf16-p limit has teeth: the kernel run without its last kv tile
+    # (a planted fault) must exceed it; TOL's 2e-2 is printed beside it
+    faults = []
+    for tag, shape, causal, bk, drop in PLANTED_FAULTS:
+        (q, k, v), = _qkv(gen, shape, torch.bfloat16)
+        o, r = attention_f32(q, k, v, causal)
+        bad = fa.flash_attention(q, k[:, :, :-drop], v[:, :, :-drop],
+                                 causal=causal, block_q=64, block_k=bk)
+        x = p_round_excess(bad, o, r)
+        err = (bad.float() - o).abs()
+        caught_by_tol = bool((err > TOL["bfloat16"]["atol"]
+                              + TOL["bfloat16"]["rtol"] * o.abs()).any())
+        faults.append({"tag": tag, "shape": list(shape), "dropped": drop,
+                       "p_round_excess": x,
+                       "max_abs_err": err.max().item(),
+                       "caught_by_2e-2": caught_by_tol})
+        log(f"K4 planted fault, {tag} {shape} without its last {drop} "
+            f"keys: {x:.3f}x the bf16-p limit (must be > 1), max |err| "
+            f"{err.max().item():.3e}; caught by rtol = atol = 2e-2: "
+            f"{caught_by_tol}")
+        if not x > 1.0:
+            raise AssertionError(f"K4 bf16-p limit has no teeth: a dropped "
+                                 f"kv tile at {tag} {shape} passes ({x:.3f})")
+        del q, k, v, o, r, bad, err
+    free_cuda()
     # the language shape in f32 as well: at bf16's limit of 2e-2, about a
     # typical |o| at this length, a lost kv tile could still pass
     e32 = check("language", LANGUAGE_SHAPE, torch.float32, True, 1024, 1024)
@@ -500,9 +740,24 @@ def flash_kernel_phase():
     log(f"K4 block_q 64, 128, {VISION_Q_CHUNK} at {VISION_SHAPE} f32: max "
         f"|diff| {knob:.3e} <= {KNOB_TOL}; bit-equal: {bit_equal}")
     del q, k, v, outs, ref
+    # the same in bf16, on the tensor-core kernel: bit-equal is the gate
+    (q, k, v), = _qkv(gen, VISION_SHAPE, torch.bfloat16)
+    outs = {bq: fa.flash_attention(q, k, v, causal=False, block_q=bq,
+                                   block_k=1024)
+            for bq in (64, 128, VISION_Q_CHUNK)}
+    ref = outs[VISION_Q_CHUNK]
+    bf16_equal = all(torch.equal(o, ref) for o in outs.values())
+    if not bf16_equal:
+        raise AssertionError("K4 bf16 results depend on block_q")
+    log(f"K4 block_q 64, 128, {VISION_Q_CHUNK} at {VISION_SHAPE} bf16: "
+        f"bit-equal: {bf16_equal}")
+    del q, k, v, outs, ref
     free_cuda()
     return {"max_abs_err": max_err, "shapes": shapes, "checked": checked,
-            "block_q_max_diff": knob, "block_q_bit_equal": bit_equal,
+            "planted_faults": faults, "block_q_max_diff": knob,
+            "block_q_bit_equal": bit_equal,
+            "block_q_bit_equal_bf16": bf16_equal,
+            "variant_launches": dict(fa.flash_attention.variant_launches),
             "check_launches": fa.flash_attention.launches - before}
 
 
@@ -727,10 +982,14 @@ def main_path():
         run["sess"].close()
         runs[frac] = run
     counts = read_launches()
+    variants = read_variants()
     main_launches = counts["K1"]
     if counts["K2"] or counts["K3"]:
         raise AssertionError(f"quantised kernels ran on the bf16 path: "
                              f"{counts}")
+    if variants["K1"] != {"mma": main_launches, "fma": 0}:
+        raise AssertionError(f"K1 on the bf16 main path: {variants['K1']}, "
+                             f"not all {main_launches} on the tensor cores")
     base = runs[2.0]["tokens"]
     for frac in BUDGETS:
         if runs[frac]["tokens"] != base:
@@ -741,7 +1000,8 @@ def main_path():
         raise AssertionError("nothing streamed at 0.1x")
     if main_launches <= 0:
         raise AssertionError("K1 was never launched on the main path")
-    log(f"K1 launches on the main path: {main_launches}")
+    log(f"K1 launches on the main path: {main_launches} (by kernel "
+        f"{variants['K1']})")
     gap = teacher_forced_check(cfg, params, base,
                                [r.prompt for r in runs[2.0]["reqs"]])
     log(f"served tokens == monolithic greedy under teacher forcing "
@@ -786,7 +1046,8 @@ def main_path():
         agree = quant[mode].pop("agreement")
         log(f"{mode} greedy tokens equal to the bf16 run's: {agree:.3f} of "
             "positions (information only: random weights quantise badly)")
-    return {"rows": rows, "launches": main_launches, "link_gbps": link,
+    return {"rows": rows, "launches": main_launches, "variants": variants,
+            "link_gbps": link,
             "profile": prof, "quant": quant}
 
 
@@ -803,10 +1064,29 @@ def _counters():
 def reset_launches():
     for fn in _counters().values():
         fn.launches = 0
+    reset_variants()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _variant_counters():
+    """K1's and K4's launches per kernel: ``"mma"`` (tensor cores, bf16)
+    and ``"fma"`` (CUDA cores)."""
+    c = _counters()
+    return {"K1": c["K1"], "K4": c["K4"]}
+
+
+def reset_variants():
+    for fn in _variant_counters().values():
+        for key in fn.variant_launches:
+            fn.variant_launches[key] = 0
+
+
+def read_variants():
+    return {name: dict(fn.variant_launches)
+            for name, fn in _variant_counters().items()}
 
 
 def quantised_params(params, mode):
@@ -929,7 +1209,6 @@ def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
     full batch, and the share of the window's wall time in which the card
     ran a kernel (copies run on their own stream and are listed apart)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import Session
     from repro_torch.core import InferenceSetting, random_requests
     free_cuda()
@@ -943,22 +1222,19 @@ def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
     b.step()                      # admissions (prefill) and a first decode
     b.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def decode_steps():
         for _ in range(steps):
             b.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    events, wall_us = profiled(decode_steps, host=True)
     b.serve([])
     sess.close()
     kernels, copies, host_ops = {}, {}, {}
     launches = 0
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             host_ops[e.key] = e.self_cpu_time_total
-            continue
-        if e.key.lower().startswith("memcpy"):
+        elif e.key.lower().startswith("memcpy"):
             copies[e.key] = e.self_device_time_total
         else:
             kernels[e.key] = e.self_device_time_total
@@ -969,8 +1245,7 @@ def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
         return None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1])[:6]
-    mm_us = sum(us for k, us in kernels.items()
-                if "(anonymous namespace)::mm_kernel<" in k)
+    mm_us = kernel_us(events, (MM_MMA, MM_FMA))
     out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "kernel_ms_per_step": busy / steps / 1e3,
            "kernel_launches_per_step": launches / steps,
@@ -999,23 +1274,10 @@ def k4_profile(tag, fn):
     """K4's share of the device's kernel time over one call of ``fn``,
     from ``torch.profiler`` (memory copies left out), and of the profiled
     window's wall time, which the profiler inflates. Printed only."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     free_cuda()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = k4 = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or \
-                e.key.lower().startswith("memcpy"):
-            continue
-        busy += e.self_device_time_total
-        if "flash_kernel<" in e.key:
-            k4 += e.self_device_time_total
+    events, wall_us = profiled(fn, host=True)
+    busy = kernel_us(events)
+    k4 = kernel_us(events, (FLASH_MMA, FLASH_FMA))
     if busy <= 0:
         log(f"profile {tag}: the profiler saw no device time (not "
             "measured)")
@@ -1034,6 +1296,35 @@ def k4_profile(tag, fn):
 VLM_GEN_STEPS = 16
 VLM_TEXT_TOKENS = 3072
 F32_REL_TOL = 1e-3    # f32 encoder, flash against plain, over max |out|
+# the bf16 encoder, flash against plain: 32 layers of bf16 rounding, in
+# which K4 rounds p to bf16 and the plain attention does not. Readings on
+# the H100: max |diff| / max |out| 2.326e-02 before the tensor-core K4 and
+# after, rms |diff| / rms |out| 1.175e-02. The limits catch a gross fault
+# only; a lost kv tile moves these gaps less than the rounding does, so
+# each layer's K4 is held to the bf16-p limit on its own inputs as well
+ENC_BF16_MAX = 5e-2
+ENC_BF16_RMS = 2e-2
+
+
+def layer_excess(fn, drop=0):
+    """Run ``fn`` with every K4 launch checked against the bf16-p limit on
+    its own q, k, v (``p_round_excess``); with ``drop`` the kernel runs
+    without the last ``drop`` keys (a planted fault). Returns one excess
+    per launch."""
+    from repro_torch.kernels import flash_attention as fa
+    real, out = fa.launch, []
+
+    def checked(q, k, v, o, **kw):
+        kk, vv = (k, v) if not drop else (k[:, :, :-drop], v[:, :, :-drop])
+        res = real(q, kk, vv, o, **kw)
+        out.append(p_round_excess(o, *attention_f32(q, k, v, kw["causal"])))
+        return res
+    fa.launch = checked
+    try:
+        fn()
+    finally:
+        fa.launch = real
+    return out
 
 
 def _encode(vlmopt, vc, params, res, dtype, flash):
@@ -1057,6 +1348,14 @@ def _encode(vlmopt, vc, params, res, dtype, flash):
         raise AssertionError(f"{res} encode: shape {tuple(out.shape)} or "
                              "non-finite values")
     return out, dt, peak
+
+
+def encode_gaps(out, ref):
+    """(max |out - ref| / max |ref|, rms |out - ref| / rms |ref|)."""
+    d = out.float() - ref.float()
+    r = ref.float()
+    return ((d.abs().max() / r.abs().max()).item(),
+            (d.square().mean().sqrt() / r.square().mean().sqrt()).item())
 
 
 def vision_path():
@@ -1083,24 +1382,54 @@ def vision_path():
     flash, t_flash, peak_flash = _encode(vlmopt, vc, params, "720p",
                                          torch.bfloat16, True)
     counts = read_launches()
+    variants = read_variants()["K4"]
     want = {name: 0 for name in counts}
     want["K4"] = vc.layers
     if counts != want:
         raise AssertionError(f"720p encode launches {counts} != {want}")
+    if variants != {"mma": vc.layers, "fma": 0}:
+        raise AssertionError(f"720p bf16 encode: K4 by kernel {variants}, "
+                             "not all on the tensor cores")
     plain, t_plain, peak_plain = _encode(vlmopt, vc, params, "720p",
                                          torch.bfloat16, False)
-    bf16_rel = ((flash.float() - plain.float()).abs().max()
-                / plain.float().abs().max()).item()
+    bf16_rel, bf16_rms = encode_gaps(flash, plain)
+    # every layer's K4 launch of one more encode against the bf16-p limit
+    # on that layer's own q, k and v; then a planted fault, each launch
+    # without the last kv tile (the 33 keys that end the last chunk)
+    sound = layer_excess(lambda: _encode(vlmopt, vc, params, "720p",
+                                         torch.bfloat16, True))
+    bad_out = []
+    bad = layer_excess(lambda: bad_out.append(_encode(
+        vlmopt, vc, params, "720p", torch.bfloat16, True)[0]), drop=33)
+    bad_rel, bad_rms = encode_gaps(bad_out.pop(), plain)
     del flash, plain
+    log(f"720p bf16 encode, flash vs plain: max |diff| / max |out| "
+        f"{bf16_rel:.3e} <= {ENC_BF16_MAX}, rms |diff| / rms |out| "
+        f"{bf16_rms:.3e} <= {ENC_BF16_RMS}; each layer's K4 at most "
+        f"{max(sound):.3f}x the bf16-p limit (<= 1)")
+    log(f"  planted fault (K4 without the last 33 keys in every layer): "
+        f"each layer's K4 at least {min(bad):.3f}x the bf16-p limit (must "
+        f"be > 1); encode gaps {bad_rel:.3e}, {bad_rms:.3e} (not gated: "
+        f"32 layers of bf16 rounding hide one lost tile)")
+    if not (bf16_rel <= ENC_BF16_MAX and bf16_rms <= ENC_BF16_RMS):
+        raise AssertionError(f"720p bf16 encode: flash vs plain "
+                             f"{bf16_rel:.3e}, {bf16_rms:.3e} beyond "
+                             f"{ENC_BF16_MAX}, {ENC_BF16_RMS}")
+    if len(sound) != vc.layers or not max(sound) <= 1.0:
+        raise AssertionError(f"720p bf16 encode: K4 layers at "
+                             f"{sound} x the bf16-p limit")
+    if len(bad) != vc.layers or not min(bad) > 1.0:
+        raise AssertionError(f"the per-layer bf16-p gate has no teeth: a "
+                             f"planted fault reads {bad}")
     prof = k4_profile("720p encode", lambda: _encode(
         vlmopt, vc, params, "720p", torch.bfloat16, True))
     demand = {f: vlmopt.vision_vram_demand(vc, "720p", offload=False,
                                            flash=f) for f in (True, False)}
     log(f"720p encode (N={n}): K4 launches {counts['K4']} == {vc.layers} "
-        f"layers; flash {t_flash:.4f} s, plain {t_plain:.4f} s; peak "
+        f"layers (by kernel {variants}); flash {t_flash:.4f} s, plain "
+        f"{t_plain:.4f} s; peak "
         f"flash {peak_flash} B (analytic {demand[True]} B), plain "
-        f"{peak_plain} B (analytic {demand[False]} B); bf16 flash vs "
-        f"plain max |diff| / max |out| {bf16_rel:.3e}")
+        f"{peak_plain} B (analytic {demand[False]} B)")
     if peak_flash - wbytes >= score_bytes:
         raise AssertionError(f"flash encode peak - weights "
                              f"{peak_flash - wbytes} B >= the N^2 scores "
@@ -1113,7 +1442,12 @@ def vision_path():
         f"B (16 N^2 f32 scores) <= plain {peak_plain - wbytes} B")
     # f32 weights: flash == plain up to the order of sums
     p32 = {k: v.float() for k, v in params.items()}
+    reset_variants()
     f32_flash, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, True)
+    variants32 = read_variants()["K4"]
+    if variants32 != {"mma": 0, "fma": vc.layers}:
+        raise AssertionError(f"720p f32 encode: K4 by kernel {variants32}, "
+                             "not all on the CUDA cores")
     f32_plain, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, False)
     rel = ((f32_flash - f32_plain).abs().max()
            / f32_plain.abs().max()).item()
@@ -1122,7 +1456,7 @@ def vision_path():
         raise AssertionError(f"f32 encoder: flash vs plain {rel:.3e} > "
                              f"{F32_REL_TOL}")
     log(f"720p f32 encoder: flash vs plain max |diff| / max |out| "
-        f"{rel:.3e} <= {F32_REL_TOL}")
+        f"{rel:.3e} <= {F32_REL_TOL}; K4 by kernel {variants32}")
     # 1440p, flash only (its plain scores alone would be 22 GB per layer)
     n1440 = vlmopt.n_vision_tokens(vc, "1440p")
     out, t_1440, peak_1440 = _encode(vlmopt, vc, params, "1440p",
@@ -1134,12 +1468,17 @@ def vision_path():
         f"{peak_1440} B (analytic {demand_1440} B)")
     del params
     free_cuda()
-    return {"launches": counts["K4"], "n_720p": n,
+    return {"launches": counts["K4"], "variant_launches": variants,
+            "variant_launches_f32": variants32, "n_720p": n,
             "encode_s_720p": t_flash, "plain_encode_s_720p": t_plain,
             "peak_flash_720p": peak_flash, "peak_plain_720p": peak_plain,
             "demand_flash_720p": demand[True],
             "demand_plain_720p": demand[False], "score_bytes": score_bytes,
             "weight_bytes": wbytes, "bf16_rel_diff": bf16_rel,
+            "bf16_rms_diff": bf16_rms, "layer_p_round_excess": sound,
+            "planted_fault_layer_excess": bad,
+            "planted_fault_rel_diff": bad_rel,
+            "planted_fault_rms_diff": bad_rms,
             "f32_rel_diff": rel, "n_1440p": n1440, "encode_s_1440p": t_1440,
             "peak_1440p": peak_1440, "demand_flash_1440p": demand_1440,
             "profile_720p": prof}
@@ -1205,11 +1544,15 @@ def language_path():
     reset_launches()
     logits, t_a, peak_a = forward(batch)
     counts = read_launches()
+    variants = read_variants()["K4"]
     want = {name: 0 for name in counts}
     want["K4"] = cfg.n_layers
     if counts != want:
         raise AssertionError(f"forward at T={T}: launches {counts} != "
                              f"{want}")
+    if variants != {"mma": cfg.n_layers, "fma": 0}:
+        raise AssertionError(f"forward at T={T}: K4 by kernel {variants}, "
+                             "not all on the tensor cores")
     if tuple(logits.shape) != (1, T, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"forward: logits {tuple(logits.shape)} or "
@@ -1226,13 +1569,22 @@ def language_path():
     plain_gap = _gap(logits[0, -64:].float(), a_tail.argmax(dim=1))
     del logits
     log(f"forward at T={T}: K4 launches {counts['K4']} == {cfg.n_layers} "
-        f"layers; {t_a:.4f} s, peak {peak_a} B; plain attention "
+        f"layers (by kernel {variants}); {t_a:.4f} s, peak {peak_a} B; "
+        f"plain attention "
         f"{t_plain:.4f} s, peak {peak_plain} B (K4's argmax within "
         f"{plain_gap:.4f} of the plain forward's top logit)")
     if peak_a >= peak_plain:
         raise AssertionError(f"flash forward peak {peak_a} B >= plain "
                              f"{peak_plain} B")
     prof = k4_profile(f"forward at T={T}", lambda: forward(batch))
+    # each layer's K4 launch of one more forward against the bf16-p limit
+    # on that layer's own q, k and v
+    layers = layer_excess(lambda: forward(batch))
+    if len(layers) != cfg.n_layers or not max(layers) <= 1.0:
+        raise AssertionError(f"forward at T={T}: K4 layers at {layers} x "
+                             "the bf16-p limit")
+    log(f"forward at T={T}: each layer's K4 at most {max(layers):.3f}x the "
+        f"bf16-p limit (<= 1)")
     # the cached prefill's logits (apply with cache, cache_pos=0)
     cache = model.init_cache(1, T + VLM_GEN_STEPS)
     logits, _ = model.apply(params, batch, cache=cache, cache_pos=0)
@@ -1283,7 +1635,8 @@ def language_path():
         f"under teacher forcing")
     del params, batch, full
     free_cuda()
-    return {"launches": counts["K4"], "T": T, "forward_s": t_a,
+    return {"launches": counts["K4"], "variant_launches": variants, "T": T,
+            "layer_p_round_excess": layers, "forward_s": t_a,
             "forward_peak": peak_a, "plain_forward_s": t_plain,
             "plain_forward_peak": peak_plain, "prefill_s": t_b,
             "decode_tps": tps, "gap_vs_cached": gap_a,
@@ -1311,21 +1664,58 @@ def vlm_planning(link):
     return out
 
 
-def kernel_entry(name, source_line, launches, max_err, shapes, headline,
-                 source="streamed_matmul"):
+def source_design(name):
+    """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
+    comment as one line: what the measured kernel is, read from the source
+    that was built, so the report cannot describe another version."""
+    lines = (SRC / "repro_torch" / "kernels" / "csrc" / f"{name}.cu") \
+        .read_text().splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith("// Design"))
+    head = lines[start][len("// Design"):].strip(" :()")
+    block = [head + ":"] if head else []
+    for line in lines[start + 1:]:
+        if not line.startswith("//   "):
+            break
+        block.append(line[2:].strip())
+    return " ".join(block).replace("- ", "", 1).replace(" - ", " ")
+
+
+def kernel_designs():
+    """What each kernel is, for the ``{"kernels": [...]}`` line."""
+    return {
+        "streamed_matmul": "bf16 (the main path): "
+        + source_design("streamed_matmul_mma") + " f32: the CUDA-core "
+        "FMA tile kernel of streamed_matmul.cu",
+        "streamed_matmul_int8": "CUDA-core FMA tile kernel, int8 codes "
+        "dequantised to f32 in shared memory",
+        "streamed_matmul_int4": "CUDA-core FMA tile kernel, packed int4 "
+        "codes dequantised to f32 in shared memory",
+        "flash_attention": "bf16 (the VLM path): "
+        + source_design("flash_attention_mma") + " f32 (and bf16 at "
+        "unaligned shapes): the CUDA-core FMA kernel of "
+        "flash_attention.cu"}
+
+
+def kernel_entry(name, replaces, launches, max_err, shapes, headline,
+                 source):
     """One kernel's entry of the ``{"kernels": [...]}`` line: the numbers
     at the ``headline`` shape (K1-K3: the up/gate projection at decode,
-    M=4; K4: the 720p vision encoder's attention)."""
+    M=4; K4: the 720p vision encoder's attention). ``source`` is the
+    kernel that runs at that shape, ``replaces`` the TPU kernel's
+    ``file:line`` under ``src/repro/kernels``."""
     shape = headline["shape"] if "shape" in headline else \
         [headline["M"], headline["K"], headline["N"]]
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-            "replaces": f"src/repro/kernels/{source}.py:{source_line}",
+            "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches, "max_abs_err": max_err,
-            "ms": headline["ms"], "plain_ms": headline["plain_ms"],
+            "ms": headline["ms"], "device_ms": headline.get("device_ms"),
+            "plain_ms": headline["plain_ms"],
             "bound_ms": headline["bound_ms"],
             "bound_by": headline["bound_by"],
             "library_ms": headline["library_ms"],
+            "design": kernel_designs()[name],
             "shape": shape, "shapes": shapes}
 
 
@@ -1374,28 +1764,40 @@ def main() -> int:
                                 fkern["block_q_bit_equal"]},
                     "seconds": time.perf_counter() - t_start}))
     kernels = [
-        kernel_entry("streamed_matmul", 95, main["launches"],
+        kernel_entry("streamed_matmul", "streamed_matmul.py:95",
+                     main["launches"],
                      kern["max_abs_err"], kern["shapes"],
-                     headline(kern["shapes"])),
-        kernel_entry("streamed_matmul_int8", 212,
+                     headline(kern["shapes"]),
+                     source="streamed_matmul_mma"),
+        kernel_entry("streamed_matmul_int8", "streamed_matmul.py:212",
                      main["quant"]["int8"]["launches"],
                      qkern["int8"]["max_abs_err"], qkern["int8"]["shapes"],
-                     headline(qkern["int8"]["shapes"])),
-        kernel_entry("streamed_matmul_int4", 289,
+                     headline(qkern["int8"]["shapes"]),
+                     source="streamed_matmul"),
+        kernel_entry("streamed_matmul_int4", "streamed_matmul.py:289",
                      main["quant"]["int4"]["launches"],
                      qkern["int4"]["max_abs_err"], qkern["int4"]["shapes"],
-                     headline(qkern["int4"]["shapes"])),
-        kernel_entry("flash_attention", 104,
+                     headline(qkern["int4"]["shapes"]),
+                     source="streamed_matmul"),
+        kernel_entry("flash_attention", "flash_attention.py:104",
                      vision["launches"] + language["launches"],
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
-                     source="flash_attention")]
+                     source="flash_attention_mma")]
+    kernels[0].update({"launches_by_variant": main["variants"]["K1"],
+                       "check_launches_by_variant":
+                           kern["variant_launches"]})
     kernels[-1].update({
         "launches_by_path": {
             "vision_720p_encode": vision["launches"],
             f"language_forward_T{language['T']}": language["launches"]},
+        "launches_by_variant": {
+            "vision_720p_encode": vision["variant_launches"],
+            f"language_forward_T{language['T']}":
+                language["variant_launches"]},
         "checked_shapes": fkern["checked"],
-        "block_q_bit_equal": fkern["block_q_bit_equal"]})
+        "block_q_bit_equal": fkern["block_q_bit_equal"],
+        "block_q_bit_equal_bf16": fkern["block_q_bit_equal_bf16"]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

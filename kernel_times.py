@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time K1 and K4 in bf16 at the main paths' shapes on one CUDA card.
+
+    python3 kernel_times.py [--src DIR]
+
+Imports ``repro_torch`` from ``DIR`` (this checkout's ``src`` by default),
+so that two trees can be timed in one call on one card: unpack the other
+tree's ``git archive`` under ``build/`` and pass its ``src``. For each
+shape it prints two times per call, both over weight (or q, k, v) copies
+larger than the L2 cache: ``ms``, CUDA events around back-to-back wrapper
+calls (host work included), and ``device_ms``, the kernels' own device
+time from ``torch.profiler`` (any K1 or K4 kernel, whichever the tree
+runs). The shapes are ``chip_smoke.py``'s: K1 at qwen2-0.5b's FFN
+projections for M = 1, 4, 64, 256, K4 at the 720p vision encoder's and
+qwen2-vl-7b's T=4096 attention. The last line is one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(cs.SRC),
+                    help="directory holding the repro_torch package")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"kernel_times: no repro_torch under {src}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+    card = cs.card_line()
+    cs.log(card)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    k1 = []
+    for (K, N) in ((896, 4864), (4864, 896)):
+        n_copies = max(2, -(-2 * cs.L2_BYTES // (K * N * 2)))
+        ws = [(torch.randn((K, N), generator=gen, device=dev) / K ** 0.5)
+              .to(torch.bfloat16) for _ in range(n_copies)]
+        for M in (1, 4, 64, 256):
+            x = torch.randn((M, K), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            a = [(x, w) for w in ws]
+            ms = cs.time_ms(streamed_matmul, a)
+            dev_ms = cs.device_ms(streamed_matmul, a,
+                                  (cs.MM_MMA, cs.MM_FMA))
+            k1.append({"M": M, "K": K, "N": N, "ms": ms,
+                       "device_ms": dev_ms})
+            cs.log(f"K1 ({M},{K})@({K},{N}) bf16: {ms:.4f} ms, device "
+                   f"{cs.fmt_ms(dev_ms)}")
+        del ws
+    k4 = []
+    for tag, shape, causal in (("vision", cs.VISION_SHAPE, False),
+                               ("language", cs.LANGUAGE_SHAPE, True)):
+        B, H, KV, Tq, Tk, hd = shape
+        set_bytes = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * 2
+        sets = cs._qkv(gen, shape, torch.bfloat16,
+                       max(2, -(-2 * cs.L2_BYTES // set_bytes)))
+
+        def call(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal,
+                                      block_q=1024, block_k=1024)
+        ms = cs.time_ms(call, sets, iters=10)
+        dev_ms = cs.device_ms(call, sets, (cs.FLASH_MMA, cs.FLASH_FMA),
+                              iters=10)
+        k4.append({"tag": tag, "shape": list(shape), "ms": ms,
+                   "device_ms": dev_ms})
+        cs.log(f"K4 {tag} {shape} bf16: {ms:.4f} ms, device "
+               f"{cs.fmt_ms(dev_ms)}")
+        del sets
+        cs.free_cuda()
+    print(json.dumps({"card": card, "src": str(src), "k1": k1, "k4": k4}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,18 +34,16 @@ def on_cpu(name, x, *ws) -> bool:
     """True when every tensor lies on the CPU (the plain version runs);
     False when all lie on one CUDA device with CUDA available (the kernel
     runs). Anything else raises: there is no fallback."""
-    ts = (x,) + ws
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if any(t.device.type != "cuda" for t in ts):
+    dev = x.device
+    if dev.type not in ("cpu", "cuda") or any(t.device != dev for t in ws):
+        ts = (x,) + ws
         raise ValueError(f"{name}: tensors on "
                          f"{sorted({str(t.device) for t in ts})}; "
                          f"{'both' if len(ts) == 2 else 'all'} must be on "
                          "the CPU or on one CUDA device")
+    if dev.type == "cpu":
+        return True
     if not torch.cuda.is_available():
         raise RuntimeError(f"{name}: CUDA tensor given but CUDA is not "
                            "available")
-    if any(t.device != x.device for t in ws):
-        raise ValueError(f"{name}: tensors on "
-                         f"{sorted({str(t.device) for t in ts})}")
     return False

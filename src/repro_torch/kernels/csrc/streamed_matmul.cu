@@ -2,7 +2,8 @@
 //
 // One tile kernel, three weight formats (the template parameter W):
 //   K1 streamed_matmul       replaces repro/kernels/streamed_matmul.py::
-//                            _mm_kernel: w (K, N) bf16 or f32;
+//                            _mm_kernel: w (K, N) f32 (K1 in bf16 runs on
+//                            the tensor cores: streamed_matmul_mma.cu);
 //   K2 streamed_matmul_int8  replaces ::_mm_quant_kernel: w (K, N) int8
 //                            codes q with f32 scales s (G, 1, N),
 //                            w = float(q) * s[k / g];
@@ -395,12 +396,6 @@ int run_int4(const void* x, const void* p, const void* s, const void* z,
 }
 
 }  // namespace
-
-extern "C" int k1_streamed_matmul_bf16(const void* x, const void* w,
-                                       void* out, int M, int N, int K,
-                                       void* stream) {
-  return run_dense<__nv_bfloat16>(x, w, out, M, N, K, stream);
-}
 
 extern "C" int k1_streamed_matmul_f32(const void* x, const void* w, void* out,
                                       int M, int N, int K, void* stream) {

@@ -5,15 +5,22 @@ reference's Pallas ``flash_attention`` computes: per head, the online
 softmax over the keys with q, k and v upcast to f32, f32 scores times
 ``hd ** -0.5``, the causal mask ``kpos <= qpos`` (both counted from 0) and
 the result in ``q.dtype``; query head h reads kv head ``h // (H // KV)``.
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/flash_attention.cu`` on the current stream (or raises); on a CPU
-tensor it computes the plain version ``kernels/ref.py::
-flash_attention_ref``. There is no fallback from one to the other.
+On a CUDA tensor the wrapper launches a hand-written Hopper kernel on the
+current stream (or raises); on a CPU tensor it computes the plain version
+``kernels/ref.py::flash_attention_ref``. There is no fallback from one to
+the other. Two kernels, chosen by ``kernel_variant`` from the dtype, the
+head dim, the strides and the pointers' alignment alone (never from a
+failure): ``"mma"``, the tensor-core kernel of
+``csrc/flash_attention_mma.cu`` (bf16 with hd a multiple of 8 and 16-byte
+aligned rows: every shape the model path gives it), and ``"fma"``, the
+f32 CUDA-core kernel of ``csrc/flash_attention.cu`` (f32, and bf16 at
+any other shape). The mma kernel rounds p to bf16 before ``p @ v``.
 
 ``block_q`` and ``block_k`` are the reference's Q-chunk and KV-chunk. The
-kernel tiles the query axis by its own fixed 64 rows: a row's sums never
-depend on the block that holds it, so ``block_q`` could change no result
-and is only checked (any positive value runs). The key axis is cut into
+kernels tile the query axis by their own fixed rows (64 on the CUDA cores,
+128 on the tensor cores): a row's sums never depend on the block that
+holds it, so ``block_q`` could change no result and is only checked (any
+positive value runs). The key axis is cut into
 chunks of ``block_k`` keys, each walked in fixed tiles. Unlike the Pallas
 kernel, ragged lengths are masked (rows past Tq are not stored, keys past
 Tk weigh 0), so no length has to divide a chunk. Any head dim up to 128
@@ -37,10 +44,13 @@ _STRIDES = ctypes.c_longlong * 12
 # q k v o B H KV Tq Tk hd strides causal block_k scale stream
 _K4_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), _I, _I, ctypes.c_float, _P]
+_CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    _CSRC / "flash_attention.cu",
     {"k4_flash_attention_bf16": _K4_ARGS,
      "k4_flash_attention_f32": _K4_ARGS})
+LIBRARY_MMA = CudaLibrary(_CSRC / "flash_attention_mma.cu",
+                          {"k4_flash_attention_bf16_mma": _K4_ARGS})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _INT_MAX = 2 ** 31 - 1
 _GRID_Y_MAX = 65535
@@ -78,6 +88,20 @@ def check_inputs(q, k, v, block_q, block_k):
     return B, H, KV, Tq, Tk, hd
 
 
+def kernel_variant(q, k, v, out) -> str:
+    """``"mma"`` where the tensor-core kernel takes the call: bf16, a head
+    dim that is a multiple of 8, every (batch, head, position) stride of
+    q, k, v and out a multiple of 8 elements and 16-byte aligned data
+    pointers, so that every row moves as 16-byte copies. Else ``"fma"``,
+    the CUDA-core kernel. A pure function of these properties."""
+    ts = (q, k, v, out)
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 \
+            and all(s % 8 == 0 for t in ts for s in t.stride()[:3]) \
+            and all(t.data_ptr() % 16 == 0 for t in ts):
+        return "mma"
+    return "fma"
+
+
 def launch(q, k, v, out, *, causal, block_q, block_k):
     """Run K4 into ``out`` (q's shape and dtype, any strides with a
     contiguous head dim) on the current stream; counts one launch.
@@ -91,7 +115,9 @@ def launch(q, k, v, out, *, causal, block_q, block_k):
     if B * H * Tq == 0:
         return out
     strides = _STRIDES(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = getattr(LIBRARY.lib(), f"k4_flash_attention_{_SUFFIX[q.dtype]}")
+    variant = kernel_variant(q, k, v, out)
+    fn = LIBRARY_MMA.lib().k4_flash_attention_bf16_mma if variant == "mma" \
+        else getattr(LIBRARY.lib(), f"k4_flash_attention_{_SUFFIX[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -102,6 +128,7 @@ def launch(q, k, v, out, *, causal, block_q, block_k):
                            f"cudaError {rc} at q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
@@ -110,7 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 128) -> torch.Tensor:
     """K4. q: (B, H, Tq, hd); k, v: (B, KV, Tk, hd), H % KV == 0, bf16 or
     f32. Returns (B, H, Tq, hd) in ``q.dtype``. Launch count:
-    ``flash_attention.launches``."""
+    ``flash_attention.launches``, and per kernel
+    ``flash_attention.variant_launches`` (``kernel_variant``)."""
     cpu = on_cpu("flash_attention", q, k, v)
     check_inputs(q, k, v, block_q, block_k)
     if cpu:
@@ -121,3 +149,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = {"mma": 0, "fma": 0}

@@ -6,10 +6,13 @@ reference's Pallas ``streamed_matmul`` computes. ``streamed_matmul_int8``
 and ``streamed_matmul_int4`` compute the same product with the weight
 stored as grouped int8 codes (``quantize_int8``) or packed int4 codes
 (``quantize_int4``), dequantised inside the kernel. On a CUDA tensor each
-wrapper launches its hand-written Hopper kernel in
-``csrc/streamed_matmul.cu`` on the current stream (or raises); on a CPU
-tensor it computes the plain version in ``kernels/ref.py``. There is no
-fallback from one to the other.
+wrapper launches its hand-written Hopper kernel on the current stream (or
+raises); on a CPU tensor it computes the plain version in
+``kernels/ref.py``. There is no fallback from one to the other. K1 in bf16
+runs on the tensor cores (``csrc/streamed_matmul_mma.cu``: mma.sync, a
+cp.async ring and a split of K fixed by (K, N), see ``split_plan``); K1 in
+f32, K2 and K3 run the f32 tile kernel of ``csrc/streamed_matmul.cu``.
+Both keep every row's result independent of M, bit for bit.
 
 Unlike the Pallas kernels, the CUDA kernels mask ragged tiles and take
 ragged quantisation groups, so any (M, K, N) and any group count are
@@ -27,6 +30,7 @@ the shapes alone.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -152,16 +156,93 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _I, _I, _I, _P]            # x w out M N K stream
 _K2_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]    # x q s out M N K g
 _K3_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]  # x p s z out M N K g
+# x w out workspace counters M N K k_split stream
+_K1_MMA_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "streamed_matmul.cu",
-    {"k1_streamed_matmul_bf16": _K1_ARGS,
-     "k1_streamed_matmul_f32": _K1_ARGS,
+    _CSRC / "streamed_matmul.cu",
+    {"k1_streamed_matmul_f32": _K1_ARGS,
      "k2_streamed_matmul_int8_bf16": _K2_ARGS,
      "k2_streamed_matmul_int8_f32": _K2_ARGS,
      "k3_streamed_matmul_int4_bf16": _K3_ARGS,
      "k3_streamed_matmul_int4_f32": _K3_ARGS})
+LIBRARY_MMA = CudaLibrary(_CSRC / "streamed_matmul_mma.cu",
+                          {"k1_streamed_matmul_bf16": _K1_MMA_ARGS})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _INT_MAX = 2 ** 31 - 1
+
+# K1 in bf16 (csrc/streamed_matmul_mma.cu): 64-column output tiles, 64-row
+# k-tiles, and a split of K fixed by (K, N) alone.
+MMA_BN = 64
+MMA_BK = 64
+TARGET_BLOCKS = 264          # two waves of the H100's 132 SMs
+MIN_SPLIT_KTILES = 2         # no split shorter than 128 rows of K
+ROW_SLICE = 256              # rows per launch: bounds the workspace
+WORKSPACE_MAX = 24 * 2 ** 20  # f32 partials of one row slice, at most
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(K: int, N: int):
+    """(S, k_split): K1's split of the K axis into S ranges of ``k_split``
+    rows (a multiple of ``MMA_BK``; the last range ragged). A function of
+    (K, N) only, never of M, so every row of any M sums the same k16 steps
+    in the same ranges and order. It aims at ``TARGET_BLOCKS`` blocks for
+    one tile row (ceil(N / 64) column tiles times S), keeps each split at
+    least ``MIN_SPLIT_KTILES`` k-tiles deep, and keeps a row slice's f32
+    partials within ``WORKSPACE_MAX``."""
+    nkt = -(-K // MMA_BK)
+    ntiles = -(-N // MMA_BN)
+    want = -(-TARGET_BLOCKS // max(ntiles, 1))
+    cap_ws = WORKSPACE_MAX // (ROW_SLICE * max(N, 1) * 4)
+    S = max(1, min(want, nkt // MIN_SPLIT_KTILES, cap_ws))
+    kts = max(1, -(-nkt // S))
+    return max(1, -(-nkt // kts)), kts * MMA_BK
+
+
+def row_slices(M: int):
+    """The row ranges K1 in bf16 launches over: ``ROW_SLICE`` rows each,
+    the last ragged. Exact, because K1's rows do not depend on M."""
+    return [(r, min(r + ROW_SLICE, M)) for r in range(0, M, ROW_SLICE)]
+
+
+def workspace_shape(M: int, K: int, N: int):
+    """The f32 partials K1 in bf16 allocates for an (M, K) @ (K, N) call:
+    (S, rows of one slice, N), or None without a split."""
+    S, _ = split_plan(K, N)
+    return None if S == 1 else (S, min(M, ROW_SLICE), N)
+
+
+def _tile_counters(device, stream, n):
+    """K1's per-output-tile arrival counters for launches on ``stream`` of
+    ``device``. The kernel leaves them zeroed, so they are allocated (and
+    zeroed) once and grown when a launch needs more. A tile's last block
+    is found by its counter, so two launches that may run at the same time
+    must not share one: launches on one stream run in order, those on two
+    streams may overlap, hence one buffer per (device, stream). A grown
+    buffer replaces the old one, whose block the caching allocator hands
+    out again only in the order of the stream it was made on, this one."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+_COUNTERS = {}
+
+
+def _raw_stream(device) -> int:
+    """The current stream's cudaStream_t on ``device``. PyTorch's CUDA
+    builds bind it directly (``_cuda_getCurrentRawStream``: 0.1 us a call
+    on the H100 machine's host, against 6-9 us for
+    ``torch.cuda.current_stream(device).cuda_stream``, which builds a
+    Stream object); the public call is the way where the binding is
+    missing."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check(name, x, w, K_w, N):
@@ -196,7 +277,8 @@ def _launch(name, fn_name, x, ptrs, M, N, K, extra=()):
 
 def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1. x: (M, K) activations; w: (K, N) weights of x's dtype. Returns
-    (M, N) in ``x.dtype``. Launch count: ``streamed_matmul.launches``."""
+    (M, N) in ``x.dtype``. Launch count: ``streamed_matmul.launches`` (one
+    per call), and per kernel ``streamed_matmul.variant_launches``."""
     if on_cpu("streamed_matmul", x, w):
         return streamed_matmul_ref(x, w)
     if w.dtype != x.dtype:
@@ -205,11 +287,56 @@ def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     M, K, N = _check("streamed_matmul", x, w, w.shape[0], w.shape[-1])
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("streamed_matmul takes contiguous row-major x, w")
-    out, launched = _launch("streamed_matmul",
-                            f"k1_streamed_matmul_{_SUFFIX[x.dtype]}", x,
-                            (w,), M, N, K)
+    if x.dtype == torch.bfloat16:
+        out, launched = _launch_mma(x, w, M, K, N)
+    else:
+        out, launched = _launch("streamed_matmul", "k1_streamed_matmul_f32",
+                                x, (w,), M, N, K)
     streamed_matmul.launches += launched
+    streamed_matmul.variant_launches[kernel_variant(x.dtype)] += launched
     return out
+
+
+def kernel_variant(dtype) -> str:
+    """Which K1 kernel a dtype takes: ``"mma"`` (bf16, tensor cores,
+    ``csrc/streamed_matmul_mma.cu``) or ``"fma"`` (f32, the f32 tile kernel
+    of ``csrc/streamed_matmul.cu``)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _launch_mma(x, w, M, K, N):
+    """K1 in bf16: one launch per row slice on the current stream, f32
+    partials in a workspace when ``split_plan`` splits K. Decode calls it
+    72 times a step on a host-bound path, so it stays lean: one device
+    lookup, no tensor per slice."""
+    dev = x.device
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if M == 0 or N == 0:
+        return out, False
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch_mma(x, w, M, K, N)
+    _, k_split = split_plan(K, N)
+    stream = _raw_stream(dev)
+    shape = workspace_shape(M, K, N)
+    ws = ws_ptr = counters_ptr = None
+    # ws is freed on return, after the launches are queued: the caching
+    # allocator hands its block out again only in this stream's order
+    if shape is not None:
+        ws = torch.empty(shape, dtype=torch.float32, device=dev)
+        ws_ptr = ws.data_ptr()
+        # one counter per output tile; tiles hold at least 16 rows
+        counters_ptr = _tile_counters(
+            dev, stream, -(-shape[1] // 16) * -(-N // MMA_BN)).data_ptr()
+    fn = LIBRARY_MMA.lib().k1_streamed_matmul_bf16
+    x_ptr, w_ptr, o_ptr = x.data_ptr(), w.data_ptr(), out.data_ptr()
+    for r0, r1 in row_slices(M):
+        rc = fn(x_ptr + 2 * r0 * K, w_ptr, o_ptr + 2 * r0 * N, ws_ptr,
+                counters_ptr, r1 - r0, N, K, k_split, stream)
+        if rc != 0:
+            raise RuntimeError(f"streamed_matmul kernel launch failed: "
+                               f"cudaError {rc} at M={r1 - r0} K={K} N={N}")
+    return out, True
 
 
 def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
@@ -274,5 +401,6 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 streamed_matmul.launches = 0
+streamed_matmul.variant_launches = {"mma": 0, "fma": 0}
 streamed_matmul_int8.launches = 0
 streamed_matmul_int4.launches = 0

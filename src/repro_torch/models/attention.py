@@ -129,7 +129,8 @@ def attend_flash(q, k, v, causal=True, q_chunk=Q_CHUNK, kv_chunk=KV_CHUNK):
     masked). q, k and v are upcast to f32 and ``p @ v`` sums in f32, as in
     the Pallas kernel; the reference's jnp scan rounds p to the input dtype
     before ``p @ v``, so the two agree to bf16 rounding in bf16 and to the
-    order of sums in f32."""
+    order of sums in f32. On the card, bf16 runs on the tensor cores and
+    rounds p to bf16 before ``p @ v``, as the reference's scan does."""
     return flash_attention_bthd(q, k, v, causal=causal, block_q=q_chunk,
                                 block_k=kv_chunk)
 

@@ -254,3 +254,124 @@ def test_ragged_lengths_match_reference_attend_ref(T, causal):
     out = tattn.attend_flash(tq, tk, tv, causal=causal, q_chunk=64,
                              kv_chunk=64)
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ K4 variants
+# Which kernel a call takes: a pure function of the dtype, the head dim,
+# the strides and the pointers' alignment (kernel_variant). The kernels
+# themselves are held on the card by chip_smoke.py.
+def _bthd_views(B, T, H, KV, hd, dtype):
+    """q, k, v, out as ops.flash_attention_bthd hands them to the kernel:
+    (B, T, heads, hd) tensors transposed to (B, heads, T, hd) views."""
+    q = torch.zeros(B, T, H, hd, dtype=dtype)
+    k = torch.zeros(B, T, KV, hd, dtype=dtype)
+    out = torch.empty(q.shape, dtype=dtype)
+    return (q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2),
+            out.transpose(1, 2))
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 80),     # VLMOpt encoder
+                                     (28, 4, 128)])    # qwen2-vl-7b
+def test_variant_bf16_vlm_shapes_take_tensor_cores(H, KV, hd):
+    views = _bthd_views(1, 37, H, KV, hd, torch.bfloat16)
+    assert views[0].stride(2) == H * hd        # the row stride is H * hd
+    assert kfa.kernel_variant(*views) == "mma"
+    q = torch.zeros(1, H, 37, hd, dtype=torch.bfloat16)
+    kv = torch.zeros(1, KV, 37, hd, dtype=torch.bfloat16)
+    assert kfa.kernel_variant(q, kv, kv, torch.empty_like(q)) == "mma"
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 80), (28, 4, 128)])
+def test_variant_f32_takes_cuda_cores(H, KV, hd):
+    assert kfa.kernel_variant(*_bthd_views(1, 37, H, KV, hd,
+                                           torch.float32)) == "fma"
+
+
+def test_variant_qkv_slices_of_one_projection():
+    """q, k and v cut from one fused projection keep 16-byte rows."""
+    qkv = torch.zeros(1, 37, 16 * 80 * 3, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(1, 37, 16, 80).transpose(1, 2)
+               for t in qkv.split(16 * 80, dim=-1))
+    assert kfa.kernel_variant(q, k, v, torch.empty_like(q)) == "mma"
+
+
+@pytest.mark.parametrize("case", ["hd20", "odd_stride", "offset"])
+def test_variant_unaligned_bf16_takes_cuda_cores(case):
+    if case == "hd20":                       # hd not a multiple of 8
+        views = _bthd_views(1, 37, 4, 2, 20, torch.bfloat16)
+    elif case == "odd_stride":               # row stride 3 * 40 + 4
+        base = torch.zeros(1, 4, 37, 44, dtype=torch.bfloat16)
+        q = base[..., :40]
+        views = (q, q[:, :2], q[:, :2], torch.empty_like(q))
+        assert q.stride(2) % 8 == 4
+    else:                                    # a pointer 2 bytes off
+        flat = torch.zeros(1 + 4 * 37 * 64, dtype=torch.bfloat16)
+        q = flat[1:].reshape(1, 4, 37, 64)
+        views = (q, q, q, torch.empty_like(q))
+    assert kfa.kernel_variant(*views) == "fma"
+
+
+def test_cpu_call_does_not_count_as_a_variant_launch():
+    before = dict(kfa.flash_attention.variant_launches)
+    x = torch.ones(1, 2, 4, 8, dtype=torch.bfloat16)
+    kfa.flash_attention(x, x, x)
+    assert kfa.flash_attention.variant_launches == before
+    assert set(before) == {"mma", "fma"}
+
+
+def test_mma_module_imports_without_nvcc(tmp_path):
+    """The tensor-core kernel's library is declared, not built, at import."""
+    code = (
+        "import repro_torch.kernels.flash_attention as fa\n"
+        "assert fa.LIBRARY_MMA.source.name == 'flash_attention_mma.cu'\n"
+        "assert fa.LIBRARY_MMA.source.exists()\n"
+        "assert fa.LIBRARY_MMA._lib is None\n"
+        "assert set(fa.LIBRARY_MMA.symbols) == "
+        "{'k4_flash_attention_bf16_mma'}\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "PYTHONPATH": str(src), "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+# ------------------------------------------------------------ bf16-p limit
+# chip_smoke.py holds K4 on the tensor cores to a limit set by its rounding
+# of p and of the output to bf16. On the CPU: that rounding, emulated on
+# the plain version's f32 attention, stays within the limit, and the same
+# attention without its last 33 keys (a dropped kv tile) does not.
+def _chip_smoke():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("causal,H,KV,hd", [(True, 4, 2, 128),
+                                            (False, 4, 4, 80)])
+def test_bf16_p_limit_passes_rounding_and_rejects_a_dropped_tile(
+        causal, H, KV, hd):
+    cs = _chip_smoke()
+    T, drop = 300, 33
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(torch.bfloat16)
+               for s in ((1, H, T, hd), (1, KV, T, hd), (1, KV, T, hd)))
+    o, r = cs.attention_f32(q, k, v, causal)
+    # p rounded to bf16 after the row max, l from the f32 p, bf16 output
+    qg = q.reshape(1, KV, H // KV, T, hd).float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) * hd ** -0.5
+    if causal:
+        s = torch.where(torch.ones(T, T, dtype=torch.bool).tril(), s,
+                        tref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    rounded = (torch.einsum("bkgts,bksd->bkgtd", p.bfloat16().float(),
+                            v.float()) / p.sum(-1, keepdim=True)) \
+        .reshape(1, H, T, hd).bfloat16()
+    assert cs.p_round_excess(rounded, o, r) <= 0.5
+    dropped, _ = cs.attention_f32(q, k[:, :, :-drop], v[:, :, :-drop],
+                                  causal)
+    assert cs.p_round_excess(dropped.bfloat16(), o, r) > 2.0

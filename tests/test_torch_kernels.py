@@ -241,3 +241,116 @@ def test_quantised_cuda_calls_without_cuda_raise(monkeypatch):
     with pytest.raises(ValueError, match="all must be"):
         km.streamed_matmul_int8(torch.ones(4, 8), q8[0],
                                 torch.ones(1, 1, 16))
+
+
+# ------------------------------------------------------------ K1 in bf16
+# The tensor-core kernel's host side: its split of K, the row slicing and
+# the workspace. The kernel itself is held on the card by chip_smoke.py.
+# (K, N) of the dense FFNs: qwen2-0.5b's and qwen3-14b's, then smoke and
+# ragged widths.
+FFN_WIDTHS = [(896, 4864), (4864, 896), (5120, 17408), (17408, 5120)]
+SPLIT_WIDTHS = FFN_WIDTHS + [(56, 112), (112, 56), (37, 129), (300, 70),
+                             (700, 96), (0, 8), (64, 64), (65, 8)]
+H100_SMS = 132
+ACT_ALLOWANCE = 64 * 2 ** 20     # chip_smoke.py's activations term
+
+
+def _split_ranges(K, N):
+    S, k_split = km.split_plan(K, N)
+    return [(s * k_split, min(K, (s + 1) * k_split)) for s in range(S)]
+
+
+@pytest.mark.parametrize("K,N", SPLIT_WIDTHS)
+def test_split_plan_covers_k_in_order(K, N):
+    """The split is a function of (K, N) alone (the kernel is given no M to
+    see): S ranges covering 0..K in order, each a whole number of 64-row
+    k-tiles except the last, none empty."""
+    S, k_split = km.split_plan(K, N)
+    assert km.split_plan(K, N) == (S, k_split)
+    assert k_split >= km.MMA_BK and k_split % km.MMA_BK == 0
+    ranges = _split_ranges(K, N)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a1 - a0 == k_split
+    if K:
+        assert all(k1 > k0 for k0, k1 in ranges)
+    # what the C entry point derives from (K, k_split): the same S
+    assert (max(1, -(-K // k_split))) == S
+
+
+@pytest.mark.parametrize("K,N", FFN_WIDTHS)
+def test_split_plan_fills_the_card_at_ffn_widths(K, N):
+    """At the FFN widths one row of output tiles (M <= 16: decode) already
+    launches at least one wave of blocks on the H100's 132 SMs."""
+    S, _ = km.split_plan(K, N)
+    assert -(-N // km.MMA_BN) * S >= H100_SMS
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 255, 256, 257, 600, 1000])
+def test_row_slices_cover_m(M):
+    slices = km.row_slices(M)
+    assert slices[0][0] == 0 and slices[-1][1] == M
+    assert all(r1 - r0 <= km.ROW_SLICE and r1 > r0 for r0, r1 in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+
+@pytest.mark.parametrize("K,N", FFN_WIDTHS)
+def test_workspace_within_bound(K, N):
+    """The f32 partials of one row slice stay within WORKSPACE_MAX, far
+    inside chip_smoke.py's activations term, at every M (beyond 256 rows
+    the slices reuse one workspace)."""
+    assert km.WORKSPACE_MAX <= ACT_ALLOWANCE // 2
+    S, _ = km.split_plan(K, N)
+    for M in (1, 4, 16, 17, 64, 256, 257, 1024):
+        shape = km.workspace_shape(M, K, N)
+        if S == 1:
+            assert shape is None
+            continue
+        assert shape == (S, min(M, km.ROW_SLICE), N)
+        assert 4 * S * shape[1] * N <= km.WORKSPACE_MAX
+
+
+def test_tile_counters_one_buffer_per_stream(monkeypatch):
+    """Launches on two streams may run at once, so each (device, stream)
+    gets its own zeroed counter buffer; one stream keeps reusing its own
+    and grows it when a launch needs more tiles."""
+    monkeypatch.setattr(km, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    a = km._tile_counters(dev, 11, 100)
+    b = km._tile_counters(dev, 22, 100)
+    assert a.data_ptr() != b.data_ptr()
+    assert km._tile_counters(dev, 11, 50) is a
+    assert a.dtype == torch.int32 and not a.any()
+    grown = km._tile_counters(dev, 11, a.numel() + 1)
+    assert grown.numel() > a.numel() and not grown.any()
+    assert km._tile_counters(dev, 22, 100) is b
+
+
+def test_kernel_variant_by_dtype():
+    assert km.kernel_variant(torch.bfloat16) == "mma"
+    assert km.kernel_variant(torch.float32) == "fma"
+    assert set(km.streamed_matmul.variant_launches) == {"mma", "fma"}
+
+
+def test_cpu_call_does_not_count_as_a_variant_launch():
+    before = dict(km.streamed_matmul.variant_launches)
+    km.streamed_matmul(torch.ones(2, 3, dtype=torch.bfloat16),
+                       torch.ones(3, 4, dtype=torch.bfloat16))
+    assert km.streamed_matmul.variant_launches == before
+
+
+def test_mma_module_imports_without_nvcc(tmp_path):
+    """The tensor-core kernel's library is declared, not built, at import."""
+    code = (
+        "import repro_torch.kernels.streamed_matmul as km\n"
+        "assert km.LIBRARY_MMA.source.name == 'streamed_matmul_mma.cu'\n"
+        "assert km.LIBRARY_MMA.source.exists()\n"
+        "assert km.LIBRARY_MMA._lib is None and km.LIBRARY._lib is None\n"
+        "assert set(km.LIBRARY_MMA.symbols) == {'k1_streamed_matmul_bf16'}\n"
+        "assert 'k1_streamed_matmul_f32' in km.LIBRARY.symbols\n")
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "no-cuda"),
+           "PYTHONPATH": str(src), "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
