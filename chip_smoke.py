@@ -7,8 +7,8 @@ Phases (each raises on failure; the last line is printed only if all pass):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one nvcc per source, all started together: K1 in f32, K2, K3
-   (``streamed_matmul.cu``); K1 in bf16 on the tensor cores
+   one nvcc per source, all started together: K1, K2, K3 in f32
+   (``streamed_matmul.cu``); K1, K2, K3 in bf16 on the tensor cores
    (``streamed_matmul_mma.cu``); K4 on the CUDA cores (f32, and bf16 at
    shapes the tensor-core kernel does not take: ``flash_attention.cu``);
    K4 in bf16 on the tensor cores (``flash_attention_mma.cu``);
@@ -24,10 +24,19 @@ Phases (each raises on failure; the last line is printed only if all pass):
    K2 (streamed_matmul_int8) and K3 (streamed_matmul_int4) on weights
    quantised on the card by the port's quantisers, at the main path's
    shapes, at qwen3-14b's FFN widths, and at ragged and odd quantisation
-   groups, bf16 and f32; row independence; their times, their plain
-   versions' times and, as context only, ``torch.matmul`` on the
-   dequantised bf16 weight (not the same function: no single PyTorch call
-   computes these, so their ``library_ms`` is null). Then K4
+   groups (g of 117, 125, 63, 5, 3, 1), bf16 on the tensor-core kernel and
+   f32 on the CUDA-core one (per-variant launch counts); bf16 also within a
+   limit set by the kernel's rounding (the bf16 output and its f32 sums)
+   against the plain version before its cast, which the kernel fed x with
+   one group's rows zeroed (a planted fault, at a main-path shape and at a
+   ragged group whose boundaries cut k16 steps) must exceed 5 times; row
+   independence bit for bit over slices of 256 and 600 rows, across
+   M = 16 and the 256-row slicing, ragged groups too; split-K on two
+   streams at once equal to one stream; their times (events and device
+   time), their plain versions' times and, as context only,
+   ``torch.matmul`` on the dequantised bf16 weight (not the same function:
+   no single PyTorch call computes these, so their ``library_ms`` is
+   null). Then K4
    (flash_attention) against its plain version over the sweep of
    tests/test_kernels.py, at the VLM path's vision (720p encoder) and
    language (qwen2-vl-7b at 4096 tokens) shapes, a ragged causal length
@@ -60,7 +69,8 @@ Phases (each raises on failure; the last line is printed only if all pass):
    the port (``weight_quant`` int8, then int4), served at 2.0x, 0.25x and
    0.1x of that mode's own weight bytes: identical tokens across budgets,
    the streamed-bytes ledger per dtype, K2's or K3's launch count equal to
-   three per FFN call and no K1 launch, no ``_dequant`` call, peak memory
+   three per FFN call, all on the tensor-core kernel, and no K1 launch, no
+   ``_dequant`` call, peak memory
    within the bound, the teacher-forced check; at 0.1x in int4 also
    overlap == sync and per-slot == fused; a profile of int4 decode;
 8. the VLM path, vision: the VLMOpt encoder at full width (d=1280, 32
@@ -138,7 +148,8 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
-    libs = {"K1 f32, K2, K3": sm.LIBRARY, "K1 bf16 (mma)": sm.LIBRARY_MMA,
+    libs = {"K1, K2, K3 f32": sm.LIBRARY,
+            "K1, K2, K3 bf16 (mma)": sm.LIBRARY_MMA,
             "K4 (fma)": fa.LIBRARY, "K4 bf16 (mma)": fa.LIBRARY_MMA}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -174,8 +185,10 @@ def time_ms(fn, args_list, iters=None):
 
 
 # kernel names as torch.profiler reports them (each an anonymous-namespace
-# template): K1 in bf16 on the tensor cores; the f32 tile kernel that runs
-# K1 in f32, K2 and K3; K4 on the tensor cores and on the CUDA cores
+# template): K1, K2 and K3 in bf16 on the tensor cores (one template over
+# the weight format: mm_mma_kernel<DenseB | Int8B | Int4B, ...>); the f32
+# tile kernel that runs K1, K2 and K3 in f32; K4 on the tensor cores and on
+# the CUDA cores
 MM_MMA, MM_FMA = "::mm_mma_kernel<", "::mm_kernel<"
 FLASH_MMA, FLASH_FMA = "::flash_mma_kernel<", "::flash_kernel<"
 
@@ -380,10 +393,71 @@ def _quantise(mode, w, group=None):
     return sm.quantize_int4(w, group_size=group or sm.GROUP_SIZE)
 
 
+# K2 and K3 in bf16 run on the tensor cores with exact products (their
+# codes are integers that bf16 holds) and are held, besides TOL's 2e-2, to
+# a limit set by their own rounding. ref32 is the plain version before its
+# cast to bf16, x.f32 @ its f32 dequantised weight w, here with the sum
+# taken in f64 and rounded once to f32, so that the limit carries the
+# kernel's rounding and not the reference's. For an output element, with
+# A = sum_k |x_k w_kn| and v the kernel's f32 value:
+#   - the bf16 output: |bf16(v) - v| <= 2^-8 |v| <= 2^-8 (|ref32| + T);
+#   - the f32 sums: T = n 2^-24 A to first order, n counting the f32
+#     roundings a product passes through at 2 units each (2^-23: in case
+#     the tensor cores truncate). A product enters a group partial of at
+#     most m = ceil(g / 16) + 1 mma steps, each step one operation over 17
+#     addends whose alignment and normalisation err by at most 17 units of
+#     their absolute sum (the tensor-core model of Fasi, Higham, Mikaitis and
+#     Pranesh, 2021): 34 m; then the product by its group's scale: 1; the
+#     adds into the split's sum, one per group the split touches,
+#     ceil(k_split / g) + 1; the S - 1 adds of the splits' sum; and 2 for
+#     ref32's own roundings (of w and of its result). n is capped at K (the
+#     first-order bound of any K-term f32 sum), which binds where K is
+#     under about 340 and only tightens the limit there.
+# The limit is 2^-8 (|ref32| + T) + T. A sound kernel's excess (error /
+# limit) stays at most 1; the kernel fed x with one group's K rows zeroed
+# (a planted fault), against the unfaulted ref32, must exceed it 5 times.
+BF16_OUT = 2.0 ** -8
+F32_UNIT = 2.0 ** -24
+QUANT_FAULT_MIN = 5.0
+# the planted faults' shapes (M, K, N, nominal group): a main-path
+# down-projection, and a ragged one whose group boundaries (g = 117) fall
+# inside k16 steps
+QUANT_FAULTS = ((4, 4864, 896, 128), (17, 700, 96, 128))
+
+
+def order_units(K, N, g):
+    """n of the f32-sum term above for a (K, N) weight in groups of g."""
+    from repro_torch.kernels import streamed_matmul as sm
+    S, k_split = sm.split_plan(K, N)
+    m = -(-g // 16) + 1
+    return min(34 * m + 1 + -(-k_split // g) + 1 + S - 1 + 2, K)
+
+
+def quant_ref32(mode, x, q):
+    """(ref32, T) of the limit above for ``x`` against the quantised
+    weight ``q`` of ``mode``; both f64 on the card."""
+    from repro_torch.kernels import streamed_matmul as sm
+    w = (sm.dequant_int8 if mode == "int8" else sm.dequant_int4)(*q)
+    K, N = w.shape
+    g = -(-K // q[1].shape[0])
+    xd, wd = x.double(), w.double()
+    T = order_units(K, N, g) * F32_UNIT * (xd.abs() @ wd.abs())
+    return (xd @ wd).float().double(), T
+
+
+def quant_round_excess(out, ref32, T):
+    """Max over elements of |out - ref32| / the limit above: at most 1 for
+    a sound K2 / K3 in bf16."""
+    lim = BF16_OUT * (ref32.abs() + T) + T + 1e-30
+    return ((out.double() - ref32).abs() / lim).max().item()
+
+
 def quant_kernel_phase():
     """K2 and K3 against their plain versions on the card, timed at the
-    main path's and qwen3-14b's FFN shapes; ragged and odd groups; row
-    independence."""
+    main path's and qwen3-14b's FFN shapes; ragged and odd groups; bf16 on
+    the tensor-core kernel and f32 on the CUDA-core one; bf16 within the
+    rounding limit above, which planted faults must exceed; row
+    independence over slices and two streams."""
     import torch
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import streamed_matmul as sm
@@ -394,13 +468,23 @@ def quant_kernel_phase():
              "int4": kref.streamed_matmul_int4_ref}
     deq = {"int8": sm.dequant_int8, "int4": sm.dequant_int4}
     before = {m: kern[m].launches for m in QUANT_MODES}
-    out = {m: {"max_abs_err": 0.0, "shapes": []} for m in QUANT_MODES}
+    out = {m: {"max_abs_err": 0.0, "round_excess": 0.0, "shapes": [],
+               "faults": []} for m in QUANT_MODES}
+    reset_variants()
 
     def check(mode, tag, x, q):
-        e = check_close(f"{mode} {tag}", kern[mode](x, *q),
-                        plain[mode](x, *q), str(x.dtype).split(".")[-1])
+        y = kern[mode](x, *q)
+        e = check_close(f"{mode} {tag}", y, plain[mode](x, *q),
+                        str(x.dtype).split(".")[-1])
         out[mode]["max_abs_err"] = max(out[mode]["max_abs_err"], e)
-        return e
+        if x.dtype == torch.bfloat16:
+            ex = quant_round_excess(y, *quant_ref32(mode, x, q))
+            if not ex <= 1.0:
+                raise AssertionError(f"{mode} {tag}: error {ex:.3f}x the "
+                                     "rounding limit")
+            out[mode]["round_excess"] = max(out[mode]["round_excess"], ex)
+            return e, ex
+        return e, None
 
     # the port's quantisers give the same bytes on the card as on the CPU
     # (the CPU's are held byte for byte against the JAX package's by
@@ -416,19 +500,27 @@ def quant_kernel_phase():
                                          f"({K},{N})")
     log("quantisers on the card == on the CPU, byte for byte")
     # ragged and odd groups, bf16 and f32 (K=700: 6 groups of 117;
-    # K=250: 2 groups of 125, the nibbles of one byte in two groups)
+    # K=250: 2 groups of 125, the nibbles of one byte in two groups;
+    # g = 5 and g = 3 cut every k16 step, g = 1 is a group a row)
+    ragged = ((3, 700, 129, 128), (17, 700, 96, 128), (1, 250, 70, 128),
+              (65, 250, 64, 128), (4, 250, 33, 64), (20, 56, 112, 128),
+              (5, 4864, 896, 64), (5, 200, 80, 5), (7, 130, 48, 3),
+              (3, 64, 64, 1))
     for mode in QUANT_MODES:
         for dtype in (torch.bfloat16, torch.float32):
-            for (M, K, N, group) in ((3, 700, 129, 128), (17, 700, 96, 128),
-                                     (1, 250, 70, 128), (65, 250, 64, 128),
-                                     (4, 250, 33, 64), (20, 56, 112, 128),
-                                     (5, 4864, 896, 64)):
+            for (M, K, N, group) in ragged:
                 w = torch.randn((K, N), generator=gen, device=dev)
                 x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
                 check(mode, f"{dtype} ({M},{K})@({K},{N}) g{group}", x,
                       _quantise(mode, w, group))
+        want = {"mma": len(ragged), "fma": len(ragged)}
+        if kern[mode].variant_launches != want:
+            raise AssertionError(f"{mode} ragged/odd groups took "
+                                 f"{kern[mode].variant_launches} != {want}")
         log(f"{mode} ragged/odd groups within tolerance (max |err| "
-            f"{out[mode]['max_abs_err']:.3e})")
+            f"{out[mode]['max_abs_err']:.3e}); bf16 within the rounding "
+            f"limit (max excess {out[mode]['round_excess']:.3f} <= 1); by "
+            f"kernel {kern[mode].variant_launches} (bf16 mma, f32 fma)")
     # the main path's and qwen3-14b's FFN shapes, bf16, timed
     for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
                        (4864, 896, (1, 4, 64, 256)),
@@ -447,46 +539,120 @@ def quant_kernel_phase():
             for M in Ms:
                 x = torch.randn((M, K), generator=gen, device=dev) \
                     .to(torch.bfloat16)
-                e = check(mode, f"bf16 ({M},{K})@({K},{N})", x, q)
+                n_mma = kern[mode].variant_launches["mma"]
+                e, ex = check(mode, f"bf16 ({M},{K})@({K},{N})", x, q)
+                if kern[mode].variant_launches["mma"] != n_mma + 1:
+                    raise AssertionError(f"{mode} ({M},{K})@({K},{N}) bf16 "
+                                         "did not take the tensor cores")
                 args = [(x,) + qq for qq in qs]
                 ms = time_ms(kern[mode], args)
+                dev_ms = device_ms(kern[mode], args, (MM_MMA,))
                 plain_ms = time_ms(plain[mode], args)
                 ctx_ms = time_ms(torch.matmul, [(x, d) for d in wds])
                 b_ms, b_by = bound(M, K, N, 2, PEAK_BF16_FLOPS,
                                    w_bytes=w_bytes)
                 out[mode]["shapes"].append(
                     {"M": M, "K": K, "N": N, "dtype": "bfloat16",
-                     "w_bytes": w_bytes, "max_abs_err": e, "ms": ms,
+                     "w_bytes": w_bytes, "max_abs_err": e,
+                     "round_excess": ex, "ms": ms, "device_ms": dev_ms,
                      "plain_ms": plain_ms, "library_ms": None,
                      "bf16_matmul_context_ms": ctx_ms, "bound_ms": b_ms,
-                     "bound_by": b_by})
+                     "bound_by": b_by, "split": list(sm.split_plan(K, N))})
                 log(f"{mode} ({M},{K})@({K},{N}) bf16 x: kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                    f"({b_by}, {w_bytes} weight bytes), max |err| {e:.3e}; "
-                    f"context, not the same function: torch.matmul on the "
-                    f"dequantised bf16 weight {ctx_ms:.4f} ms")
+                    f"ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} "
+                    f"ms, bound {b_ms:.4f} ms ({b_by}, {w_bytes} weight "
+                    f"bytes), max |err| {e:.3e}, {ex:.3f}x the rounding "
+                    f"limit; context, not the same function: torch.matmul "
+                    f"on the dequantised bf16 weight {ctx_ms:.4f} ms")
             del qs, wds, wd
         del w
         free_cuda()
-    # row independence, both tile configurations, ragged groups too
+    # the rounding limit has teeth: the kernel fed x with one group's K
+    # rows zeroed, against the unfaulted ref32, must exceed it 5 times;
+    # TOL's 2e-2 is printed beside it
+    for (M, K, N, group) in QUANT_FAULTS:
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        x = torch.randn((M, K), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for mode in QUANT_MODES:
+            q = _quantise(mode, w, group)
+            ref32, T = quant_ref32(mode, x, q)
+            g = -(-K // q[1].shape[0])
+            gi = q[1].shape[0] // 2
+            bad_x = x.clone()
+            bad_x[:, gi * g:min(K, (gi + 1) * g)] = 0
+            bad = kern[mode](bad_x, *q)
+            ex = quant_round_excess(bad, ref32, T)
+            err = (bad.double() - ref32).abs()
+            caught = bool((err > TOL["bfloat16"]["atol"]
+                           + TOL["bfloat16"]["rtol"] * ref32.abs()).any())
+            out[mode]["faults"].append(
+                {"shape": [M, K, N], "g": g, "rows_zeroed":
+                 [gi * g, min(K, (gi + 1) * g)], "round_excess": ex,
+                 "max_abs_err": err.max().item(), "caught_by_2e-2": caught})
+            log(f"{mode} planted fault, ({M},{K})@({K},{N}) g{g} with x's "
+                f"rows {gi * g}..{min(K, (gi + 1) * g) - 1} zeroed: {ex:.3f}x "
+                f"the rounding limit (must be >= {QUANT_FAULT_MIN}), max "
+                f"|err| {err.max().item():.3e}; caught by rtol = atol = "
+                f"2e-2: {caught}")
+            if not ex >= QUANT_FAULT_MIN:
+                raise AssertionError(f"{mode} rounding limit has too few "
+                                     f"teeth at ({M},{K})@({K},{N}): a "
+                                     f"zeroed group reads {ex:.3f}x")
+    # row independence: 256 rows in both tile configurations, and 600,
+    # which the bf16 wrapper launches as slices of 256: slices that cross
+    # M = 16 (the two tile heights) and 256 (the slicing); ragged groups
     for mode in QUANT_MODES:
         for (K, N) in ((896, 4864), (4864, 896), (250, 70)):
             w = torch.randn((K, N), generator=gen, device=dev)
             q = _quantise(mode, w)
             for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn((256, K), generator=gen, device=dev).to(dtype)
-                full = kern[mode](x, *q)
-                for rows in ((0, 1), (3, 4), (0, 4), (5, 21), (100, 164),
-                             (0, 256)):
-                    part = kern[mode](x[rows[0]:rows[1]].contiguous(), *q)
-                    if not torch.equal(part, full[rows[0]:rows[1]]):
-                        raise AssertionError(
-                            f"{mode} rows {rows} of ({K},{N}) {dtype} "
-                            "depend on M")
+                for M, cuts in ((256, ((0, 1), (3, 4), (0, 4), (5, 21),
+                                       (100, 164), (0, 256))),
+                                (600, ((0, 16), (0, 17), (10, 30),
+                                       (250, 270), (255, 257), (200, 520),
+                                       (256, 600), (599, 600)))):
+                    x = torch.randn((M, K), generator=gen, device=dev) \
+                        .to(dtype)
+                    full = kern[mode](x, *q)
+                    if M == 600:
+                        check(mode, f"{dtype} (600,{K})@({K},{N})", x, q)
+                    for rows in cuts:
+                        part = kern[mode](x[rows[0]:rows[1]].contiguous(), *q)
+                        if not torch.equal(part, full[rows[0]:rows[1]]):
+                            raise AssertionError(
+                                f"{mode} rows {rows} of {M} at ({K},{N}) "
+                                f"{dtype} depend on M or on the row slicing")
     torch.cuda.synchronize()
-    log("K2, K3 row results independent of M: bit for bit")
+    log("K2, K3 row results independent of M: bit for bit (slices of 256 "
+        "and 600 rows, across M = 16 and the 256-row slicing, ragged "
+        "groups, bf16 and f32)")
+    # split-K on two streams at once: each stream has its own tile counters
+    for mode in QUANT_MODES:
+        for (M, K, N) in ((4, 4864, 896), (64, 4864, 896), (300, 896, 4864),
+                          (17, 700, 96)):
+            w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+            q = _quantise(mode, w)
+            x = torch.randn((M, K), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            want = kern[mode](x, *q)
+            torch.cuda.synchronize()
+            streams = [torch.cuda.Stream() for _ in range(2)]
+            outs = []
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs += [kern[mode](x, *q) for _ in range(8)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, want) for o in outs):
+                raise AssertionError(f"{mode} ({M},{K})@({K},{N}) on two "
+                                     "streams at once differs from one")
+    log("K2, K3 split-K on two streams at once == on one stream, bit for "
+        "bit")
     for m in QUANT_MODES:
         out[m]["check_launches"] = kern[m].launches - before[m]
+        out[m]["variant_launches"] = dict(kern[m].variant_launches)
+        log(f"{m} bf16 within the rounding limit at every shape: max "
+            f"excess {out[m]['round_excess']:.3f} <= 1")
     return out
 
 
@@ -1071,22 +1237,17 @@ def read_launches():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def _variant_counters():
-    """K1's and K4's launches per kernel: ``"mma"`` (tensor cores, bf16)
-    and ``"fma"`` (CUDA cores)."""
-    c = _counters()
-    return {"K1": c["K1"], "K4": c["K4"]}
-
-
 def reset_variants():
-    for fn in _variant_counters().values():
+    """Every kernel's launches per variant: ``"mma"`` (tensor cores, bf16)
+    and ``"fma"`` (CUDA cores) back to 0."""
+    for fn in _counters().values():
         for key in fn.variant_launches:
             fn.variant_launches[key] = 0
 
 
 def read_variants():
     return {name: dict(fn.variant_launches)
-            for name, fn in _variant_counters().items()}
+            for name, fn in _counters().items()}
 
 
 def quantised_params(params, mode):
@@ -1155,16 +1316,21 @@ def quant_path(cfg, params, db, system, mode, base):
     finally:
         mlp._dequant = real_dequant
     counts = read_launches()
+    variants = read_variants()
     want_counts = {k: 0 for k in counts}
     want_counts[kname] = 3 * ffn_calls      # gate, up, down per FFN call
     if counts != want_counts:
         raise AssertionError(f"{mode}: launches {counts} != {want_counts} "
                              f"(three {kname} per FFN call, nothing else)")
+    if variants[kname] != {"mma": counts[kname], "fma": 0}:
+        raise AssertionError(f"{mode}: {kname} by kernel {variants[kname]}, "
+                             f"not all {counts[kname]} on the tensor cores")
     if dequant_calls[0]:
         raise AssertionError(f"{mode}: the served path called _dequant "
                              f"{dequant_calls[0]} times")
     log(f"{kname} launches on the {mode} main path: {counts[kname]} == 3 x "
-        f"{ffn_calls} FFN calls; K1 and the other kernel 0; _dequant 0")
+        f"{ffn_calls} FFN calls (by kernel {variants[kname]}); K1 and the "
+        "other kernel 0; _dequant 0")
     tokens = runs[2.0]["tokens"]
     for frac in QUANT_BUDGETS:
         if runs[frac]["tokens"] != tokens:
@@ -1199,7 +1365,8 @@ def quant_path(cfg, params, db, system, mode, base):
             run["sess"].close()
         prof = profile_phase(qcfg, qparams, db, system, int(total * 0.1),
                              tag=f"{mode} 0.1x")
-    return {"rows": rows, "launches": counts[kname], "total_bytes": total,
+    return {"rows": rows, "launches": counts[kname],
+            "variants": variants[kname], "total_bytes": total,
             "teacher_forced_gap": gap, "agreement": agree,
             "profile": prof}
 
@@ -1687,10 +1854,16 @@ def kernel_designs():
         "streamed_matmul": "bf16 (the main path): "
         + source_design("streamed_matmul_mma") + " f32: the CUDA-core "
         "FMA tile kernel of streamed_matmul.cu",
-        "streamed_matmul_int8": "CUDA-core FMA tile kernel, int8 codes "
-        "dequantised to f32 in shared memory",
-        "streamed_matmul_int4": "CUDA-core FMA tile kernel, packed int4 "
-        "codes dequantised to f32 in shared memory",
+        "streamed_matmul_int8": "bf16 (the int8 main path): the Int8B "
+        "format of streamed_matmul_mma.cu: "
+        + source_design("streamed_matmul_mma") + " f32: the "
+        "CUDA-core FMA tile kernel of streamed_matmul.cu (Int8W, codes "
+        "dequantised to f32 in shared memory)",
+        "streamed_matmul_int4": "bf16 (the int4 main path): the Int4B "
+        "format of streamed_matmul_mma.cu: "
+        + source_design("streamed_matmul_mma") + " f32: the "
+        "CUDA-core FMA tile kernel of streamed_matmul.cu (Int4W, codes "
+        "dequantised to f32 in shared memory)",
         "flash_attention": "bf16 (the VLM path): "
         + source_design("flash_attention_mma") + " f32 (and bf16 at "
         "unaligned shapes): the CUDA-core FMA kernel of "
@@ -1773,12 +1946,12 @@ def main() -> int:
                      main["quant"]["int8"]["launches"],
                      qkern["int8"]["max_abs_err"], qkern["int8"]["shapes"],
                      headline(qkern["int8"]["shapes"]),
-                     source="streamed_matmul"),
+                     source="streamed_matmul_mma"),
         kernel_entry("streamed_matmul_int4", "streamed_matmul.py:289",
                      main["quant"]["int4"]["launches"],
                      qkern["int4"]["max_abs_err"], qkern["int4"]["shapes"],
                      headline(qkern["int4"]["shapes"]),
-                     source="streamed_matmul"),
+                     source="streamed_matmul_mma"),
         kernel_entry("flash_attention", "flash_attention.py:104",
                      vision["launches"] + language["launches"],
                      fkern["max_abs_err"], fkern["shapes"],
@@ -1787,6 +1960,12 @@ def main() -> int:
     kernels[0].update({"launches_by_variant": main["variants"]["K1"],
                        "check_launches_by_variant":
                            kern["variant_launches"]})
+    for entry, mode in zip(kernels[1:3], QUANT_MODES):
+        entry.update({
+            "launches_by_variant": main["quant"][mode]["variants"],
+            "check_launches_by_variant": qkern[mode]["variant_launches"],
+            "round_excess": qkern[mode]["round_excess"],
+            "planted_faults": qkern[mode]["faults"]})
     kernels[-1].update({
         "launches_by_path": {
             "vision_720p_encode": vision["launches"],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K1 and K4 in bf16 at the main paths' shapes on one CUDA card.
+"""Time K1, K2, K3 and K4 in bf16 at the main paths' shapes on one card.
 
     python3 kernel_times.py [--src DIR]
 
@@ -9,10 +9,12 @@ tree's ``git archive`` under ``build/`` and pass its ``src``. For each
 shape it prints two times per call, both over weight (or q, k, v) copies
 larger than the L2 cache: ``ms``, CUDA events around back-to-back wrapper
 calls (host work included), and ``device_ms``, the kernels' own device
-time from ``torch.profiler`` (any K1 or K4 kernel, whichever the tree
-runs). The shapes are ``chip_smoke.py``'s: K1 at qwen2-0.5b's FFN
-projections for M = 1, 4, 64, 256, K4 at the 720p vision encoder's and
-qwen2-vl-7b's T=4096 attention. The last line is one JSON object.
+time from ``torch.profiler`` (any streamed-matmul or K4 kernel,
+whichever the tree runs). The shapes are ``chip_smoke.py``'s: K1, K2
+(int8) and K3 (int4) at qwen2-0.5b's FFN projections for M = 1, 4, 64,
+256 and at qwen3-14b's for M = 1, 4, K2 and K3 on weights quantised on
+the card by the tree's own quantisers; K4 at the 720p vision encoder's
+and qwen2-vl-7b's T=4096 attention. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -39,17 +41,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import streamed_matmul as sm
     from repro_torch.kernels.streamed_matmul import streamed_matmul
     card = cs.card_line()
     cs.log(card)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     k1 = []
-    for (K, N) in ((896, 4864), (4864, 896)):
+    for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
+                       (4864, 896, (1, 4, 64, 256)),
+                       (5120, 17408, (1, 4)), (17408, 5120, (1, 4))):
         n_copies = max(2, -(-2 * cs.L2_BYTES // (K * N * 2)))
         ws = [(torch.randn((K, N), generator=gen, device=dev) / K ** 0.5)
               .to(torch.bfloat16) for _ in range(n_copies)]
-        for M in (1, 4, 64, 256):
+        for M in Ms:
             x = torch.randn((M, K), generator=gen, device=dev) \
                 .to(torch.bfloat16)
             a = [(x, w) for w in ws]
@@ -61,6 +66,32 @@ def main() -> int:
             cs.log(f"K1 ({M},{K})@({K},{N}) bf16: {ms:.4f} ms, device "
                    f"{cs.fmt_ms(dev_ms)}")
         del ws
+        cs.free_cuda()
+    quant = {"int8": [], "int4": []}
+    kern = {"int8": sm.streamed_matmul_int8, "int4": sm.streamed_matmul_int4}
+    for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
+                       (4864, 896, (1, 4, 64, 256)),
+                       (5120, 17408, (1, 4)), (17408, 5120, (1, 4))):
+        w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5) \
+            .to(torch.bfloat16)
+        for mode in quant:
+            q = cs._quantise(mode, w)
+            w_bytes = sum(t.numel() * t.element_size() for t in q)
+            qs = [q] + [tuple(t.clone() for t in q) for _ in
+                        range(max(2, -(-2 * cs.L2_BYTES // w_bytes)) - 1)]
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device=dev) \
+                    .to(torch.bfloat16)
+                a = [(x,) + qq for qq in qs]
+                ms = cs.time_ms(kern[mode], a)
+                dev_ms = cs.device_ms(kern[mode], a, (cs.MM_MMA, cs.MM_FMA))
+                quant[mode].append({"M": M, "K": K, "N": N, "ms": ms,
+                                    "device_ms": dev_ms})
+                cs.log(f"{cs.KERNEL_OF[mode]} {mode} ({M},{K})@({K},{N}) "
+                       f"bf16: {ms:.4f} ms, device {cs.fmt_ms(dev_ms)}")
+            del qs, q
+        del w
+        cs.free_cuda()
     k4 = []
     for tag, shape, causal in (("vision", cs.VISION_SHAPE, False),
                                ("language", cs.LANGUAGE_SHAPE, True)):
@@ -81,7 +112,8 @@ def main() -> int:
                f"{cs.fmt_ms(dev_ms)}")
         del sets
         cs.free_cuda()
-    print(json.dumps({"card": card, "src": str(src), "k1": k1, "k4": k4}))
+    print(json.dumps({"card": card, "src": str(src), "k1": k1,
+                      "k2": quant["int8"], "k3": quant["int4"], "k4": k4}))
     return 0
 
 

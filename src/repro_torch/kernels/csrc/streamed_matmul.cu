@@ -1,9 +1,11 @@
-// K1, K2, K3 — the streamed matmuls, hand-written for Hopper (sm_90a).
+// K1, K2, K3 in f32 — the streamed matmuls for f32 activations, hand-
+// written for Hopper (sm_90a). (bf16 x of every format runs on the tensor
+// cores: streamed_matmul_mma.cu. The wrapper picks by dtype alone,
+// streamed_matmul.py::kernel_variant.)
 //
 // One tile kernel, three weight formats (the template parameter W):
 //   K1 streamed_matmul       replaces repro/kernels/streamed_matmul.py::
-//                            _mm_kernel: w (K, N) f32 (K1 in bf16 runs on
-//                            the tensor cores: streamed_matmul_mma.cu);
+//                            _mm_kernel: w (K, N) f32;
 //   K2 streamed_matmul_int8  replaces ::_mm_quant_kernel: w (K, N) int8
 //                            codes q with f32 scales s (G, 1, N),
 //                            w = float(q) * s[k / g];
@@ -12,10 +14,10 @@
 //                            K row), fp16 scales s and uint8 zero-points z,
 //                            both (G, N), w = (float(q) - float(z)) * s.
 // Every format computes out = x @ w for x (M, K): x and the dequantised w
-// in f32, summed over K in f32 by fmaf, cast to x's type (bf16 or f32) on
-// the way out. The group of row k is k / g with g = ceil(K / G), taken per
-// row (never per byte: an odd g puts the two nibbles of one byte in two
-// groups), so ragged groups (G * g != K) need no veto. Each weight format
+// in f32, summed over K in f32 by fmaf, stored as f32. The group of row k
+// is k / g with g = ceil(K / G), taken per row (never per
+// byte: an odd g puts the two nibbles of one byte in two groups), so
+// ragged groups (G * g != K) need no veto. Each weight format
 // dequantises while it stores its tile into shared memory, so no
 // dequantised weight ever lies in device memory, and the products are
 // __fmul_rn, never contracted into the sum's fmaf: the same rounding as
@@ -25,13 +27,14 @@
 // scratch; here each thread keeps its sums in registers and walks K in a
 // loop inside the block.
 //
-// Bound. The port calls them for the dense FFN's w_gate, w_up and w_down.
-// At decode M is the batch (1..4) and they are bound by the weight's bytes.
-// At M = 4 on qwen2-0.5b's (896, 4864), counting x, w, scales, zeros and
-// out once, over the H100 SXM data sheet's 3.35 TB/s:
-//   K1 bf16  8,716,288 + 46,080 B                        about 2.62 us
-//   K2 int8  4,358,144 + 136,192 + 46,080 B              about 1.36 us
-//   K3 int4  2,179,072 + 68,096 + 34,048 + 46,080 B      about 0.69 us
+// Bound. The port calls them for the dense FFN's w_gate, w_up and w_down
+// where the model runs in f32. At decode M is the batch (1..4) and they are
+// bound by the weight's bytes. At M = 4 on qwen2-0.5b's (896, 4864),
+// counting x, w, scales, zeros and out once, over the H100 SXM data
+// sheet's 3.35 TB/s:
+//   K1 f32   17,432,576 + 92,160 B                       about 5.23 us
+//   K2 int8  4,358,144 + 136,192 + 92,160 B              about 1.37 us
+//   K3 int4  2,179,072 + 68,096 + 34,048 + 92,160 B      about 0.71 us
 // Large prefill chunks lean toward the operations bound.
 //
 // Design, simple and right first:
@@ -52,18 +55,17 @@
 //     fmaf chain over k = 0, 1, ..., K-1 in that order, whatever M, the grid,
 //     the tile configuration or the block that holds the row. There is no
 //     split-K. So kernel(x)[rows] == kernel(x[rows]) bit for bit.
-// Left for a later change: tensor cores (mma.sync / wgmma), TMA loads into a
-// multi-stage ring, wider loads of the quantised bytes, and more bytes in
-// flight at decode: without split-K, N / BN blocks is all the parallelism a
-// small M gives, so the (M, 4864) @ (4864, 896) down-projection runs on 28
-// blocks.
+// Left for a later change (f32 x only; bf16 x has them in
+// streamed_matmul_mma.cu): a multi-stage ring, wider loads of the quantised
+// bytes, and more bytes in flight at decode: without split-K, N / BN blocks
+// is all the parallelism a small M gives, so the (M, 4864) @ (4864, 896)
+// down-projection runs on 28 blocks.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (repro_torch/kernels/streamed_matmul.py). Each entry point
 // launches on the stream it is given, does not synchronise, and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -73,13 +75,7 @@
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
 
 // VEC consecutive elements base[row * ld + col ...] as f32, zero past the
 // edges (row >= rows, column >= cols). One 16-byte load when allowed.
@@ -402,25 +398,11 @@ extern "C" int k1_streamed_matmul_f32(const void* x, const void* w, void* out,
   return run_dense<float>(x, w, out, M, N, K, stream);
 }
 
-extern "C" int k2_streamed_matmul_int8_bf16(const void* x, const void* q,
-                                            const void* s, void* out, int M,
-                                            int N, int K, int g,
-                                            void* stream) {
-  return run_int8<__nv_bfloat16>(x, q, s, out, M, N, K, g, stream);
-}
-
 extern "C" int k2_streamed_matmul_int8_f32(const void* x, const void* q,
                                            const void* s, void* out, int M,
                                            int N, int K, int g,
                                            void* stream) {
   return run_int8<float>(x, q, s, out, M, N, K, g, stream);
-}
-
-extern "C" int k3_streamed_matmul_int4_bf16(const void* x, const void* p,
-                                            const void* s, const void* z,
-                                            void* out, int M, int N, int K,
-                                            int g, void* stream) {
-  return run_int4<__nv_bfloat16>(x, p, s, z, out, M, N, K, g, stream);
 }
 
 extern "C" int k3_streamed_matmul_int4_f32(const void* x, const void* p,

@@ -8,11 +8,13 @@ stored as grouped int8 codes (``quantize_int8``) or packed int4 codes
 (``quantize_int4``), dequantised inside the kernel. On a CUDA tensor each
 wrapper launches its hand-written Hopper kernel on the current stream (or
 raises); on a CPU tensor it computes the plain version in
-``kernels/ref.py``. There is no fallback from one to the other. K1 in bf16
-runs on the tensor cores (``csrc/streamed_matmul_mma.cu``: mma.sync, a
-cp.async ring and a split of K fixed by (K, N), see ``split_plan``); K1 in
-f32, K2 and K3 run the f32 tile kernel of ``csrc/streamed_matmul.cu``.
-Both keep every row's result independent of M, bit for bit.
+``kernels/ref.py``. There is no fallback from one to the other. In bf16
+all three run on the tensor cores (``csrc/streamed_matmul_mma.cu``:
+mma.sync, a cp.async ring and a split of K fixed by (K, N), see
+``split_plan``; K2 and K3 convert their codes in registers to exact bf16
+fragments and scale each group's f32 partial sum); in f32 they run the
+f32 tile kernel of ``csrc/streamed_matmul.cu`` (``kernel_variant``). Both
+keep every row's result independent of M, bit for bit.
 
 Unlike the Pallas kernels, the CUDA kernels mask ragged tiles and take
 ragged quantisation groups, so any (M, K, N) and any group count are
@@ -156,23 +158,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _I, _I, _I, _P]            # x w out M N K stream
 _K2_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]    # x q s out M N K g
 _K3_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]  # x p s z out M N K g
-# x w out workspace counters M N K k_split stream
-_K1_MMA_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# the weight's pointers, then out workspace counters M N K [g] k_split stream
+_MMA_TAIL = [_P, _P, _P, _I, _I, _I]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(
     _CSRC / "streamed_matmul.cu",
     {"k1_streamed_matmul_f32": _K1_ARGS,
-     "k2_streamed_matmul_int8_bf16": _K2_ARGS,
      "k2_streamed_matmul_int8_f32": _K2_ARGS,
-     "k3_streamed_matmul_int4_bf16": _K3_ARGS,
      "k3_streamed_matmul_int4_f32": _K3_ARGS})
-LIBRARY_MMA = CudaLibrary(_CSRC / "streamed_matmul_mma.cu",
-                          {"k1_streamed_matmul_bf16": _K1_MMA_ARGS})
-_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+LIBRARY_MMA = CudaLibrary(
+    _CSRC / "streamed_matmul_mma.cu",
+    {"k1_streamed_matmul_bf16": [_P, _P] + _MMA_TAIL + [_I, _P],
+     "k2_streamed_matmul_int8_bf16_mma": [_P] * 3 + _MMA_TAIL + [_I, _I, _P],
+     "k3_streamed_matmul_int4_bf16_mma": [_P] * 4 + _MMA_TAIL
+     + [_I, _I, _P]})
+_DTYPES = (torch.bfloat16, torch.float32)
 _INT_MAX = 2 ** 31 - 1
 
-# K1 in bf16 (csrc/streamed_matmul_mma.cu): 64-column output tiles, 64-row
-# k-tiles, and a split of K fixed by (K, N) alone.
+# K1, K2, K3 in bf16 (csrc/streamed_matmul_mma.cu): 64-column output tiles,
+# and a split of K, in units of 64 rows, fixed by (K, N) alone.
 MMA_BN = 64
 MMA_BK = 64
 TARGET_BLOCKS = 264          # two waves of the H100's 132 SMs
@@ -183,13 +187,13 @@ WORKSPACE_MAX = 24 * 2 ** 20  # f32 partials of one row slice, at most
 
 @functools.lru_cache(maxsize=256)
 def split_plan(K: int, N: int):
-    """(S, k_split): K1's split of the K axis into S ranges of ``k_split``
-    rows (a multiple of ``MMA_BK``; the last range ragged). A function of
-    (K, N) only, never of M, so every row of any M sums the same k16 steps
-    in the same ranges and order. It aims at ``TARGET_BLOCKS`` blocks for
-    one tile row (ceil(N / 64) column tiles times S), keeps each split at
-    least ``MIN_SPLIT_KTILES`` k-tiles deep, and keeps a row slice's f32
-    partials within ``WORKSPACE_MAX``."""
+    """(S, k_split): the bf16 kernels' split of the K axis into S ranges
+    of ``k_split`` rows (a multiple of ``MMA_BK``; the last range ragged).
+    A function of (K, N) only, never of M, so every row of any M sums the
+    same k16 steps in the same ranges and order. It aims at
+    ``TARGET_BLOCKS`` blocks for one tile row (ceil(N / 64) column tiles
+    times S), keeps each split at least ``MIN_SPLIT_KTILES`` k-tiles deep,
+    and keeps a row slice's f32 partials within ``WORKSPACE_MAX``."""
     nkt = -(-K // MMA_BK)
     ntiles = -(-N // MMA_BN)
     want = -(-TARGET_BLOCKS // max(ntiles, 1))
@@ -200,27 +204,28 @@ def split_plan(K: int, N: int):
 
 
 def row_slices(M: int):
-    """The row ranges K1 in bf16 launches over: ``ROW_SLICE`` rows each,
-    the last ragged. Exact, because K1's rows do not depend on M."""
+    """The row ranges the bf16 kernels launch over: ``ROW_SLICE`` rows
+    each, the last ragged. Exact, because their rows do not depend on M."""
     return [(r, min(r + ROW_SLICE, M)) for r in range(0, M, ROW_SLICE)]
 
 
 def workspace_shape(M: int, K: int, N: int):
-    """The f32 partials K1 in bf16 allocates for an (M, K) @ (K, N) call:
+    """The f32 partials a bf16 kernel allocates for an (M, K) @ (K, N) call:
     (S, rows of one slice, N), or None without a split."""
     S, _ = split_plan(K, N)
     return None if S == 1 else (S, min(M, ROW_SLICE), N)
 
 
 def _tile_counters(device, stream, n):
-    """K1's per-output-tile arrival counters for launches on ``stream`` of
-    ``device``. The kernel leaves them zeroed, so they are allocated (and
-    zeroed) once and grown when a launch needs more. A tile's last block
-    is found by its counter, so two launches that may run at the same time
-    must not share one: launches on one stream run in order, those on two
-    streams may overlap, hence one buffer per (device, stream). A grown
-    buffer replaces the old one, whose block the caching allocator hands
-    out again only in the order of the stream it was made on, this one."""
+    """The bf16 kernels' per-output-tile arrival counters for launches on
+    ``stream`` of ``device``. The kernel leaves them zeroed, so they are
+    allocated (and zeroed) once and grown when a launch needs more. A
+    tile's last block is found by its counter, so two launches that may
+    run at the same time must not share one: launches on one stream run
+    in order, those on two streams may overlap, hence one buffer per
+    (device, stream). A grown buffer replaces the old one, whose block the
+    caching allocator hands out again only in the order of the stream it
+    was made on, this one."""
     key = (device.index, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
@@ -247,7 +252,7 @@ def _raw_stream(device) -> int:
 
 def _check(name, x, w, K_w, N):
     """Shared checks of x against a (K_w, N) weight; returns (M, K, N)."""
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in _DTYPES:
         raise ValueError(f"{name} takes bf16 or f32 activations, got "
                          f"{x.dtype}")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != K_w:
@@ -260,15 +265,18 @@ def _check(name, x, w, K_w, N):
 
 
 def _launch(name, fn_name, x, ptrs, M, N, K, extra=()):
-    """Allocate the output and launch ``fn_name`` on the current stream."""
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    """An f32 kernel of ``LIBRARY``: allocate the output and launch
+    ``fn_name`` on the current stream."""
+    dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(name, fn_name, x, ptrs, M, N, K, extra)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0 or N == 0:
         return out, False
     fn = getattr(LIBRARY.lib(), fn_name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), *(t.data_ptr() for t in ptrs),
-                out.data_ptr(), M, N, K, *extra, stream)
+    rc = fn(x.data_ptr(), *(t.data_ptr() for t in ptrs), out.data_ptr(), M,
+            N, K, *extra, _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
                            f"at M={M} K={K} N={N}")
@@ -288,7 +296,9 @@ def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("streamed_matmul takes contiguous row-major x, w")
     if x.dtype == torch.bfloat16:
-        out, launched = _launch_mma(x, w, M, K, N)
+        out, launched = _launch_mma("streamed_matmul",
+                                    "k1_streamed_matmul_bf16", x, (w,), M,
+                                    K, N)
     else:
         out, launched = _launch("streamed_matmul", "k1_streamed_matmul_f32",
                                 x, (w,), M, N, K)
@@ -298,24 +308,26 @@ def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_variant(dtype) -> str:
-    """Which K1 kernel a dtype takes: ``"mma"`` (bf16, tensor cores,
-    ``csrc/streamed_matmul_mma.cu``) or ``"fma"`` (f32, the f32 tile kernel
-    of ``csrc/streamed_matmul.cu``)."""
+    """Which kernel K1, K2 and K3 take for activations of ``dtype``:
+    ``"mma"`` (bf16, tensor cores, ``csrc/streamed_matmul_mma.cu``) or
+    ``"fma"`` (f32, the f32 tile kernel of ``csrc/streamed_matmul.cu``).
+    Every group size takes the same kernel."""
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
-def _launch_mma(x, w, M, K, N):
-    """K1 in bf16: one launch per row slice on the current stream, f32
-    partials in a workspace when ``split_plan`` splits K. Decode calls it
-    72 times a step on a host-bound path, so it stays lean: one device
-    lookup, no tensor per slice."""
+def _launch_mma(name, fn_name, x, weights, M, K, N, extra=()):
+    """A bf16 kernel of ``LIBRARY_MMA`` for x @ the tensors ``weights``
+    (``extra``: the ints between K and k_split): one launch per row slice
+    on the current stream, f32 partials in a workspace when ``split_plan``
+    splits K. Decode calls it 72 times a step on a host-bound path, so it
+    stays lean: one device lookup, no tensor per slice."""
     dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch_mma(name, fn_name, x, weights, M, K, N, extra)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     if M == 0 or N == 0:
         return out, False
-    if dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _launch_mma(x, w, M, K, N)
     _, k_split = split_plan(K, N)
     stream = _raw_stream(dev)
     shape = workspace_shape(M, K, N)
@@ -328,14 +340,15 @@ def _launch_mma(x, w, M, K, N):
         # one counter per output tile; tiles hold at least 16 rows
         counters_ptr = _tile_counters(
             dev, stream, -(-shape[1] // 16) * -(-N // MMA_BN)).data_ptr()
-    fn = LIBRARY_MMA.lib().k1_streamed_matmul_bf16
-    x_ptr, w_ptr, o_ptr = x.data_ptr(), w.data_ptr(), out.data_ptr()
+    fn = getattr(LIBRARY_MMA.lib(), fn_name)
+    w_ptrs = [t.data_ptr() for t in weights]
+    x_ptr, o_ptr = x.data_ptr(), out.data_ptr()
     for r0, r1 in row_slices(M):
-        rc = fn(x_ptr + 2 * r0 * K, w_ptr, o_ptr + 2 * r0 * N, ws_ptr,
-                counters_ptr, r1 - r0, N, K, k_split, stream)
+        rc = fn(x_ptr + 2 * r0 * K, *w_ptrs, o_ptr + 2 * r0 * N, ws_ptr,
+                counters_ptr, r1 - r0, N, K, *extra, k_split, stream)
         if rc != 0:
-            raise RuntimeError(f"streamed_matmul kernel launch failed: "
-                               f"cudaError {rc} at M={r1 - r0} K={K} N={N}")
+            raise RuntimeError(f"{name} kernel launch failed: cudaError "
+                               f"{rc} at M={r1 - r0} K={K} N={N}")
     return out, True
 
 
@@ -343,7 +356,8 @@ def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
                          scales: torch.Tensor) -> torch.Tensor:
     """K2. x: (M, K) bf16 or f32; w_q: (K, N) int8 codes; scales: (G, 1, N)
     f32 (``quantize_int8``). Returns ``x.f32 @ dequant_int8(w_q, scales)``
-    in ``x.dtype``. Launch count: ``streamed_matmul_int8.launches``."""
+    in ``x.dtype``. Launch count: ``streamed_matmul_int8.launches``, and
+    per kernel ``streamed_matmul_int8.variant_launches``."""
     name = "streamed_matmul_int8"
     if on_cpu(name, x, w_q, scales):
         return streamed_matmul_int8_ref(x, w_q, scales)
@@ -358,10 +372,15 @@ def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
     if not all(t.is_contiguous() for t in (x, w_q, scales)):
         raise ValueError(f"{name} takes contiguous x, w_q, scales")
     g = max(-(-K // scales.shape[0]), 1)
-    out, launched = _launch(
-        name, f"k2_streamed_matmul_int8_{_SUFFIX[x.dtype]}", x,
-        (w_q, scales), M, N, K, extra=(g,))
+    if x.dtype == torch.bfloat16:
+        out, launched = _launch_mma(name, "k2_streamed_matmul_int8_bf16_mma",
+                                    x, (w_q, scales), M, K, N, extra=(g,))
+    else:
+        out, launched = _launch(name, "k2_streamed_matmul_int8_f32", x,
+                                (w_q, scales), M, N, K, extra=(g,))
     streamed_matmul_int8.launches += launched
+    streamed_matmul_int8.variant_launches[kernel_variant(x.dtype)] += \
+        launched
     return out
 
 
@@ -372,7 +391,8 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
     per byte (low nibble = even K row); scales: (G, N) fp16; zeros: (G, N)
     uint8 (``quantize_int4``). Returns ``x.f32 @ dequant_int4(...)`` in
     ``x.dtype``; any group count, ragged or odd groups included. Launch
-    count: ``streamed_matmul_int4.launches``."""
+    count: ``streamed_matmul_int4.launches``, and per kernel
+    ``streamed_matmul_int4.variant_launches``."""
     name = "streamed_matmul_int4"
     if on_cpu(name, x, w_packed, scales, zeros):
         return streamed_matmul_int4_ref(x, w_packed, scales, zeros)
@@ -393,14 +413,23 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"{name} takes contiguous x, w_packed, scales, "
                          "zeros")
     g = max(-(-K // scales.shape[0]), 1)
-    out, launched = _launch(
-        name, f"k3_streamed_matmul_int4_{_SUFFIX[x.dtype]}", x,
-        (w_packed, scales, zeros), M, N, K, extra=(g,))
+    if x.dtype == torch.bfloat16:
+        out, launched = _launch_mma(name, "k3_streamed_matmul_int4_bf16_mma",
+                                    x, (w_packed, scales, zeros), M, K, N,
+                                    extra=(g,))
+    else:
+        out, launched = _launch(name, "k3_streamed_matmul_int4_f32", x,
+                                (w_packed, scales, zeros), M, N, K,
+                                extra=(g,))
     streamed_matmul_int4.launches += launched
+    streamed_matmul_int4.variant_launches[kernel_variant(x.dtype)] += \
+        launched
     return out
 
 
 streamed_matmul.launches = 0
 streamed_matmul.variant_launches = {"mma": 0, "fma": 0}
 streamed_matmul_int8.launches = 0
+streamed_matmul_int8.variant_launches = {"mma": 0, "fma": 0}
 streamed_matmul_int4.launches = 0
+streamed_matmul_int4.variant_launches = {"mma": 0, "fma": 0}

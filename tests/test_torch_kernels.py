@@ -94,7 +94,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "from repro_torch.kernels import _build\n"
         "assert km.LIBRARY.source.name == 'streamed_matmul.cu'\n"
         "assert km.LIBRARY.source.exists() and km.LIBRARY._lib is None\n"
-        "assert {'k2_streamed_matmul_int8_bf16',\n"
+        "assert {'k2_streamed_matmul_int8_f32',\n"
         "        'k3_streamed_matmul_int4_f32'} <= set(km.LIBRARY.symbols)\n"
         "try:\n"
         "    _build.nvcc_path()\n"
@@ -340,14 +340,19 @@ def test_cpu_call_does_not_count_as_a_variant_launch():
 
 
 def test_mma_module_imports_without_nvcc(tmp_path):
-    """The tensor-core kernel's library is declared, not built, at import."""
+    """The tensor-core kernels' library (K1, K2 and K3 in bf16) is
+    declared, not built, at import."""
     code = (
         "import repro_torch.kernels.streamed_matmul as km\n"
         "assert km.LIBRARY_MMA.source.name == 'streamed_matmul_mma.cu'\n"
         "assert km.LIBRARY_MMA.source.exists()\n"
         "assert km.LIBRARY_MMA._lib is None and km.LIBRARY._lib is None\n"
-        "assert set(km.LIBRARY_MMA.symbols) == {'k1_streamed_matmul_bf16'}\n"
-        "assert 'k1_streamed_matmul_f32' in km.LIBRARY.symbols\n")
+        "assert set(km.LIBRARY_MMA.symbols) == {\n"
+        "    'k1_streamed_matmul_bf16', 'k2_streamed_matmul_int8_bf16_mma',\n"
+        "    'k3_streamed_matmul_int4_bf16_mma'}\n"
+        "assert set(km.LIBRARY.symbols) == {\n"
+        "    'k1_streamed_matmul_f32', 'k2_streamed_matmul_int8_f32',\n"
+        "    'k3_streamed_matmul_int4_f32'}\n")
     src = Path(__file__).resolve().parents[1] / "src"
     env = {"PATH": str(tmp_path), "CUDA_HOME": str(tmp_path / "no-cuda"),
            "PYTHONPATH": str(src), "HOME": str(tmp_path)}
