@@ -20,11 +20,14 @@ Phases (each raises on failure; the last line is printed only if all pass):
    the kernel (CUDA events over back-to-back calls, and
    the kernel's own device time from ``torch.profiler``), the plain
    version and ``torch.matmul`` (the yardstick only — the port never
-   calls it). Then
+   calls it); K1 also at qwen30b-a3b's expert shapes (bf16, timed) and
+   router shapes (f32). Then
    K2 (streamed_matmul_int8) and K3 (streamed_matmul_int4) on weights
    quantised on the card by the port's quantisers, at the main path's
    shapes, at qwen3-14b's FFN widths, and at ragged and odd quantisation
-   groups (g of 117, 125, 63, 5, 3, 1), bf16 on the tensor-core kernel and
+   groups (g of 117, 125, 63, 5, 3, 1) and at qwen30b-a3b's expert shapes
+   (K2 also as one group, the ``expert_quant`` form, with its row
+   independence), bf16 on the tensor-core kernel and
    f32 on the CUDA-core one (per-variant launch counts); bf16 also within a
    limit set by the kernel's rounding (the bf16 output and its f32 sums)
    against the plain version before its cast, which the kernel fed x with
@@ -75,9 +78,11 @@ Phases (each raises on failure; the last line is printed only if all pass):
    overlap == sync and per-slot == fused; a profile of int4 decode;
 8. the VLM path, vision: the VLMOpt encoder at full width (d=1280, 32
    layers, 16 heads, seeded bf16 weights drawn on the card) encodes 720p
-   (4641 patches) through K4: 32 K4 launches per encode, all on the
-   tensor-core kernel (the f32 encode: all on the CUDA-core one); peak
-   memory of the flash and the plain encode against the N^2 score bytes;
+   (4641 patches) through K4: one K4 launch per layer and Q-chunk of 1024
+   rows (160 per encode), all on the tensor-core kernel (the f32 encode:
+   all on the CUDA-core one); peak memory of the flash and the plain
+   encode against the N^2 score bytes, and gated at or under the
+   analytic ``vision_vram_demand`` (720p flash and plain, 1440p flash);
    bf16 flash against plain (a coarse gate) and each layer's K4 launch
    within the bf16-p limit on its own q, k, v, which a planted fault
    must exceed; flash == plain with f32 weights; K4's share of one encode's kernel time
@@ -91,7 +96,27 @@ Phases (each raises on failure; the last line is printed only if all pass):
    ``decode_step``s checked under teacher forcing against a no-cache
    forward;
 10. planning: a planning-only ``Session`` of qwen2-vl-7b on the h100 at 4
-   and 8 GB.
+   and 8 GB;
+11. MoE: qwen30b-a3b at its published widths (d=2048, 32/4 heads, hd=128,
+   128 experts top-8, d_expert=768, vocab 151936) and 12 of its 48 layers,
+   seeded bf16 weights drawn on the card one matrix at a time, served as
+   phase 3 serves (4 requests of 64 + 16 tokens, ``max_batch=4``): expert-
+   granular at 2.0x, 0.5x and 0.1x of the graph's weight bytes, monolithic
+   at 2.0x and 0.5x, granular without overlap at 0.1x: identical tokens
+   across all six, the ledger (streamed == static plan + demanded expert
+   bytes, per dtype), overlap and sync streaming equal bytes, each decode
+   step's demanded experts per layer <= active tokens x top_k, peak
+   memory within the bound (which counts the (E, C, d) dispatch and
+   output buffers), K1's launches: 3 per expert call on the tensor cores
+   and one f32 router call each on the CUDA cores; the served tokens
+   under teacher forcing against a plain monolithic forward (router by
+   ``torch.matmul`` in f32, each expert dequantised and multiplied by
+   ``torch.matmul``: no kernel launches in it); each run's demand slots;
+   a profile of granular decode at 0.1x. Then per-expert int8
+   (``expert_quant``, K2 as one group) and int4 (``weight_quant``, K3)
+   experts, each granular and monolithic at 0.5x and granular at 0.1x
+   with identical tokens, 3 K2 or K3 launches per expert call, no
+   ``_dequant``, and the same plain teacher-forced check.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -297,12 +322,23 @@ def kernel_phase():
         raise AssertionError(f"K1 ragged shapes took "
                              f"{streamed_matmul.variant_launches} != {want}")
     log(f"K1 ragged shapes by kernel: {streamed_matmul.variant_launches}")
-    # the main path's shapes, bf16, timed
-    for (K, N) in ((896, 4864), (4864, 896)):
+    # the MoE router's logits: f32, (T, 2048) @ (2048, 128), on the f32
+    # kernel at decode and prefill row counts
+    for M in (4, 64):
+        x = torch.randn((M, 2048), generator=gen, device=dev)
+        w = torch.randn((2048, 128), generator=gen, device=dev) / 2048 ** 0.5
+        max_err = max(max_err, check_close(
+            f"K1 float32 ({M},2048)@(2048,128)", streamed_matmul(x, w),
+            kref.streamed_matmul_ref(x, w), "float32"))
+    # the main path's shapes (qwen2-0.5b's FFN, then qwen30b-a3b's
+    # experts), bf16, timed
+    for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
+                       (4864, 896, (1, 4, 64, 256)),
+                       (2048, 768, (4, 64)), (768, 2048, (4, 64))):
         n_copies = max(2, -(-2 * L2_BYTES // (K * N * 2)))
         ws = [(torch.randn((K, N), generator=gen, device=dev) / K ** 0.5)
               .to(torch.bfloat16) for _ in range(n_copies)]
-        for M in (1, 4, 64, 256):
+        for M in Ms:
             x = torch.randn((M, K), generator=gen, device=dev) \
                 .to(torch.bfloat16)
             out = streamed_matmul(x, ws[0])
@@ -327,7 +363,8 @@ def kernel_phase():
         del ws
     # row independence: kernel(x)[rows] == kernel(x[rows]) bit for bit,
     # across both tile configurations (M <= 16 and M > 16)
-    for (K, N) in ((896, 4864), (4864, 896), (112, 56)):
+    for (K, N) in ((896, 4864), (4864, 896), (112, 56), (2048, 768),
+                   (768, 2048), (2048, 128)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((256, K), generator=gen, device=dev).to(dtype)
             w = (torch.randn((K, N), generator=gen, device=dev)
@@ -521,9 +558,28 @@ def quant_kernel_phase():
             f"{out[mode]['max_abs_err']:.3e}); bf16 within the rounding "
             f"limit (max excess {out[mode]['round_excess']:.3f} <= 1); by "
             f"kernel {kern[mode].variant_launches} (bf16 mma, f32 fma)")
-    # the main path's and qwen3-14b's FFN shapes, bf16, timed
+    # expert_quant="int8": an expert's matrix as int8 codes with one f32
+    # scale, which K2 takes as a single group, the scale broadcast to
+    # (1, 1, N) (models/mlp.py), at qwen30b-a3b's expert shapes
+    from repro_torch.models import mlp
+    for (M, K, N) in ((4, 2048, 768), (64, 2048, 768), (4, 768, 2048),
+                      (64, 768, 2048)):
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        qe = mlp.quantize_experts_int8(
+            {"w_gate": w, "w_up": w, "w_down": w})
+        q = (qe["w_gate"], qe["s_gate"].reshape(1, 1, 1).expand(1, 1, N)
+             .contiguous())
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+            check("int8", f"{dtype} ({M},{K})@({K},{N}) one group", x, q)
+    log("int8 one group (expert_quant) at the expert shapes within "
+        f"tolerance; bf16 within the rounding limit (max excess "
+        f"{out['int8']['round_excess']:.3f} <= 1)")
+    # the main path's, qwen30b-a3b's expert and qwen3-14b's FFN shapes,
+    # bf16, timed
     for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
                        (4864, 896, (1, 4, 64, 256)),
+                       (2048, 768, (4, 64)), (768, 2048, (4, 64)),
                        (5120, 17408, (1, 4)), (17408, 5120, (1, 4))):
         w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5) \
             .to(torch.bfloat16)
@@ -601,11 +657,14 @@ def quant_kernel_phase():
                                      f"zeroed group reads {ex:.3f}x")
     # row independence: 256 rows in both tile configurations, and 600,
     # which the bf16 wrapper launches as slices of 256: slices that cross
-    # M = 16 (the two tile heights) and 256 (the slicing); ragged groups
+    # M = 16 (the two tile heights) and 256 (the slicing); ragged groups,
+    # an expert's shape, and one group (as expert_quant runs K2)
     for mode in QUANT_MODES:
-        for (K, N) in ((896, 4864), (4864, 896), (250, 70)):
+        for (K, N, group) in ((896, 4864, None), (4864, 896, None),
+                              (250, 70, None), (2048, 768, None),
+                              (2048, 768, 2048)):
             w = torch.randn((K, N), generator=gen, device=dev)
-            q = _quantise(mode, w)
+            q = _quantise(mode, w, group)
             for dtype in (torch.bfloat16, torch.float32):
                 for M, cuts in ((256, ((0, 1), (3, 4), (0, 4), (5, 21),
                                        (100, 164), (0, 256))),
@@ -967,7 +1026,11 @@ def expected_streamed_by_dtype(ex):
 
 def memory_bound(sess):
     """Peak device bytes the plan allows, with everything the executor
-    keeps outside the planned budget counted in."""
+    keeps outside the planned budget counted in. For MoE: the at-use term
+    covers the router, expert and whole-MoE sub-layers, and the (E, C, d)
+    dispatch and output buffers are counted at the most rows C the run
+    held at once (``ExecStats.moe_rows_peak``)."""
+    from repro_torch.core.prefetch import groups_nbytes
     from repro_torch.models.common import tree_nbytes
     ex = sess.executor
     cfg = sess.cfg
@@ -982,20 +1045,25 @@ def memory_bound(sess):
                              f"schedule {[pl.sub.name for pl in placements]}")
     tiers = set(ex.stats.tiers_used) or set(sess.schedule.tiers)
     scratch = max(sess.schedule.tiers[t].scratch_bytes for t in tiers)
-    at_use = max(tree_nbytes(ex._subtree(s)) for s in sess.subs
-                 if s.kind in ("attn", "ffn"))
+    at_use = max(groups_nbytes(ex._subtree(s)) for s in sess.subs
+                 if s.kind in ("attn", "ffn", "moe", "moe_router",
+                               "moe_expert"))
     kv = 2 * cfg.n_layers * MAX_BATCH * cfg.n_kv_heads * MAX_SEQ \
         * cfg.resolved_head_dim * 2
     resident = tree_nbytes({k: ex.host[k] for k in ex.host})
     parts = {"pinned": pinned, "scratch": scratch, "at_use_one_sublayer":
              at_use, "kv": kv, "embed_norm_head": resident,
              "activations": ACT_ALLOWANCE}
+    if cfg.moe is not None:
+        parts["moe_dispatch_and_output"] = \
+            2 * cfg.moe.n_experts * ex.stats.moe_rows_peak * cfg.d_model * 2
     return sum(parts.values()), parts
 
 
 def serve_once(cfg, params, db, system, budget, *, overlap=True,
                fused=True, prefill_mode=None, rebudget_to=None,
-               rebudget_after=2, n_req=N_REQ, new_tokens=NEW_TOKENS):
+               rebudget_after=2, n_req=N_REQ, new_tokens=NEW_TOKENS,
+               expert_granular=None):
     import torch
     from repro_torch import Session
     from repro_torch.core import InferenceSetting, random_requests
@@ -1005,7 +1073,8 @@ def serve_once(cfg, params, db, system, budget, *, overlap=True,
                         setting=InferenceSetting(batch=MAX_BATCH,
                                                  context=MAX_SEQ),
                         db=db, params=params, max_seq=MAX_SEQ,
-                        overlap=overlap, prefill_mode=prefill_mode)
+                        overlap=overlap, prefill_mode=prefill_mode,
+                        expert_granular=expert_granular)
     # build the executor (weights placed on the card) before the requests
     # arrive, so TTFT counts serving and not set-up
     batcher = sess.batcher(max_batch=MAX_BATCH, fused=fused)
@@ -1054,6 +1123,17 @@ def summarise(tag, run):
            "plans": {t: sess.schedule.tiers[t].plan.name
                      for t in st["serving"]["tiers_used"]},
            "peak_mb": run["peak"] / 1e6}
+    if "expert_hit_rate" in ex:
+        passes = sess.executor.stats.pass_expert_stats
+        row.update({
+            "expert_hit_rate": ex["expert_hit_rate"],
+            "demanded_expert_mb": ex["demanded_expert_bytes"] / 1e6,
+            "demanded_mb_per_decode_step": sum(
+                p["demanded_bytes"] for p in passes) / max(len(passes), 1)
+            / 1e6,
+            "resident_expert_mb": ex["resident_expert_bytes"] / 1e6,
+            "demand_slots": (sess.executor.prefetch.stats.demand_slots
+                             if sess.executor.prefetch is not None else 0)})
     by_dtype = "{" + ", ".join(f"{k}: {v:.1f}" for k, v in
                                row["streamed_mb_by_dtype"].items()) + "}"
     log(f"budget {tag}: TTFT {row['ttft_s']:.4f} s, decode "
@@ -1064,25 +1144,56 @@ def summarise(tag, run):
         f"{row['copy_s_exposed']:.4f} s, at use {row['at_use_mb']:.1f} MB "
         f"waited {row['at_use_s']:.4f} s, tiers {row['tiers']} "
         f"{row['plans']}, peak {row['peak_mb']:.1f} MB")
+    if "expert_hit_rate" in row:
+        log(f"  experts: hit rate {row['expert_hit_rate']:.4f}, demanded "
+            f"{row['demanded_expert_mb']:.1f} MB "
+            f"({row['demanded_mb_per_decode_step']:.1f} MB per decode "
+            f"step), resident {row['resident_expert_mb']:.1f} MB, demand "
+            f"slots {row['demand_slots']}")
     return row
+
+
+def _device_model_params(cfg, params):
+    """``params`` on the card for the monolithic forward. An MoE model's
+    layers go as a list of per-layer trees with each expert a tree of its
+    own (``mlp.split_experts``), so no (E, ...) stack lands on the card."""
+    from repro_torch.models import mlp
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import layer_slice
+    if cfg.moe is None:
+        return tree_map(lambda t: t.to("cuda"), params)
+    layers = []
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        lp["moe"] = mlp.split_experts(lp["moe"])
+        layers.append(tree_map(lambda t: t.to("cuda"), lp))
+    return {**{k: v.to("cuda") for k, v in params.items() if k != "layers"},
+            "layers": layers}
 
 
 def teacher_forced_check(cfg, params, tokens, prompts):
     """The served tokens against the port's monolithic forward on the card:
     every served token must be the argmax of the monolithic logits at its
-    position, up to the near-tie margin ``TF_GAP`` (the monolithic FFN runs
-    through torch.matmul on bf16 weights, dequantised to bf16 where they
-    are quantised; the served one through K1, K2 or K3 in f32)."""
+    position, up to the near-tie margin ``TF_GAP``. The forward's FFNs are
+    plain math: the dense FFN runs through torch.matmul on bf16 weights,
+    dequantised to bf16 where they are quantised, the served one through
+    K1, K2 or K3; an MoE layer routes with ``torch.matmul`` in f32 and
+    runs each expert as ``plain_expert_ffn``, so no streamed-matmul kernel
+    launches in the forward (checked), and a fault in the served MoE layer
+    shows here."""
     import torch
-    from repro_torch.models import build_model
-    from repro_torch.models.common import tree_map
-    dev_params = tree_map(lambda t: t.to("cuda"), params)
-    model = build_model(cfg).module(dev_params)
+    from repro_torch.models import build_model, mlp
+    dev_params = _device_model_params(cfg, params)
+    model = build_model(cfg)
     worst = 0.0
+    before = read_launches()
     for prompt, gen in zip(prompts, tokens):
         seq = torch.as_tensor(list(prompt) + gen[:-1], dtype=torch.int32,
                               device="cuda")[None]
-        logits, _ = model(seq)
+        with torch.no_grad(), \
+                _Swap(mlp, "expert_ffn", plain_expert_ffn), \
+                _Swap(mlp, "streamed_matmul", torch.matmul):
+            logits, _ = model.apply(dev_params, {"tokens": seq})
         if tuple(logits.shape) != (1, seq.shape[1], cfg.vocab):
             raise AssertionError(f"logits shape {tuple(logits.shape)}")
         if not bool(torch.isfinite(logits).all()):
@@ -1093,6 +1204,10 @@ def teacher_forced_check(cfg, params, tokens, prompts):
         worst = max(worst, gap)
     del model, dev_params
     free_cuda()
+    after = read_launches()
+    if any(after[k] != before[k] for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"the plain forward launched kernels: "
+                             f"{before} -> {after}")
     if worst > TF_GAP:
         raise AssertionError(f"served tokens disagree with the monolithic "
                              f"forward: logit gap {worst:.4f} > {TF_GAP}")
@@ -1250,6 +1365,53 @@ def read_variants():
             for name, fn in _counters().items()}
 
 
+class _CallCount:
+    """Counts the calls of ``module.name`` while installed."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.real = module, name, getattr(module,
+                                                                   name)
+        self.calls = 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+class _Swap:
+    """``module.name`` replaced by ``fn`` while installed."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+        self.real = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def plain_expert_ffn(p_e, rows):
+    """One expert as plain math, for the forward the served tokens are
+    held against: each weight dequantised to the rows' dtype by
+    ``mlp._dequant``, then ``torch.matmul``, as the dense monolithic FFN
+    computes; no kernel of the port runs."""
+    from repro_torch.models import mlp
+    gate = rows @ mlp._dequant(p_e, "w_gate", rows.dtype)
+    up = rows @ mlp._dequant(p_e, "w_up", rows.dtype)
+    return mlp._silu_mul(gate, up) @ mlp._dequant(p_e, "w_down", rows.dtype)
+
+
 def quantised_params(params, mode):
     """``params`` with every layer's FFN quantised by the port's
     quantisers, on the card, then copied back to pinned host memory; the
@@ -1280,17 +1442,9 @@ def quant_path(cfg, params, db, system, mode, base):
     kname = KERNEL_OF[mode]
     runs, rows = {}, []
     ffn_calls = 0
-    dequant_calls = [0]
-    real_dequant = mlp._dequant
-
-    def counting_dequant(*a, **kw):
-        dequant_calls[0] += 1
-        return real_dequant(*a, **kw)
-
     # launches counted over exactly this mode's main-path run
     reset_launches()
-    mlp._dequant = counting_dequant
-    try:
+    with _CallCount(mlp, "_dequant") as dequant:
         for frac in QUANT_BUDGETS:
             run = serve_once(qcfg, qparams, db, system, int(total * frac))
             rows.append(summarise(f"{mode} {frac}x", run))
@@ -1313,8 +1467,6 @@ def quant_path(cfg, params, db, system, mode, base):
             del ex
             run["sess"].close()
             runs[frac] = run
-    finally:
-        mlp._dequant = real_dequant
     counts = read_launches()
     variants = read_variants()
     want_counts = {k: 0 for k in counts}
@@ -1325,9 +1477,9 @@ def quant_path(cfg, params, db, system, mode, base):
     if variants[kname] != {"mma": counts[kname], "fma": 0}:
         raise AssertionError(f"{mode}: {kname} by kernel {variants[kname]}, "
                              f"not all {counts[kname]} on the tensor cores")
-    if dequant_calls[0]:
+    if dequant.calls:
         raise AssertionError(f"{mode}: the served path called _dequant "
-                             f"{dequant_calls[0]} times")
+                             f"{dequant.calls} times")
     log(f"{kname} launches on the {mode} main path: {counts[kname]} == 3 x "
         f"{ffn_calls} FFN calls (by kernel {variants[kname]}); K1 and the "
         "other kernel 0; _dequant 0")
@@ -1497,7 +1649,8 @@ def layer_excess(fn, drop=0):
 def _encode(vlmopt, vc, params, res, dtype, flash):
     """One encode of seeded patches at ``res``; returns (out, seconds,
     peak bytes). The peak counts everything allocated, weights
-    included."""
+    included. The patches are a temporary: the encoder overwrites them
+    with its residual stream and returns them."""
     import torch
     n = vlmopt.n_vision_tokens(vc, res)
     pg = torch.Generator(device="cuda").manual_seed(1)
@@ -1507,6 +1660,7 @@ def _encode(vlmopt, vc, params, res, dtype, flash):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = vlmopt.vision_encode(params, vc, patches, flash=flash)
+    del patches
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1542,6 +1696,7 @@ def vision_path():
         f"{time.perf_counter() - t0:.1f} s")
     n = vlmopt.n_vision_tokens(vc, "720p")
     score_bytes = vc.heads * n * n * 4
+    q_chunks = -(-n // 1024)     # K4 launches per layer: one per Q-chunk
     # warm-up (library loading), outside the counted run
     vlmopt.vision_encode(params, vc, torch.zeros(
         (1, 64, vc.d), dtype=torch.bfloat16, device="cuda"), flash=True)
@@ -1551,10 +1706,10 @@ def vision_path():
     counts = read_launches()
     variants = read_variants()["K4"]
     want = {name: 0 for name in counts}
-    want["K4"] = vc.layers
+    want["K4"] = vc.layers * q_chunks
     if counts != want:
         raise AssertionError(f"720p encode launches {counts} != {want}")
-    if variants != {"mma": vc.layers, "fma": 0}:
+    if variants != {"mma": want["K4"], "fma": 0}:
         raise AssertionError(f"720p bf16 encode: K4 by kernel {variants}, "
                              "not all on the tensor cores")
     plain, t_plain, peak_plain = _encode(vlmopt, vc, params, "720p",
@@ -1582,10 +1737,10 @@ def vision_path():
         raise AssertionError(f"720p bf16 encode: flash vs plain "
                              f"{bf16_rel:.3e}, {bf16_rms:.3e} beyond "
                              f"{ENC_BF16_MAX}, {ENC_BF16_RMS}")
-    if len(sound) != vc.layers or not max(sound) <= 1.0:
+    if len(sound) != want["K4"] or not max(sound) <= 1.0:
         raise AssertionError(f"720p bf16 encode: K4 layers at "
                              f"{sound} x the bf16-p limit")
-    if len(bad) != vc.layers or not min(bad) > 1.0:
+    if len(bad) != want["K4"] or not min(bad) > 1.0:
         raise AssertionError(f"the per-layer bf16-p gate has no teeth: a "
                              f"planted fault reads {bad}")
     prof = k4_profile("720p encode", lambda: _encode(
@@ -1593,10 +1748,15 @@ def vision_path():
     demand = {f: vlmopt.vision_vram_demand(vc, "720p", offload=False,
                                            flash=f) for f in (True, False)}
     log(f"720p encode (N={n}): K4 launches {counts['K4']} == {vc.layers} "
-        f"layers (by kernel {variants}); flash {t_flash:.4f} s, plain "
-        f"{t_plain:.4f} s; peak "
-        f"flash {peak_flash} B (analytic {demand[True]} B), plain "
-        f"{peak_plain} B (analytic {demand[False]} B)")
+        f"layers x {q_chunks} Q-chunks (by kernel {variants}); flash "
+        f"{t_flash:.4f} s, plain {t_plain:.4f} s; peak "
+        f"flash {peak_flash} B <= analytic {demand[True]} B, plain "
+        f"{peak_plain} B <= analytic {demand[False]} B")
+    for tag, peak, lim in (("flash", peak_flash, demand[True]),
+                           ("plain", peak_plain, demand[False])):
+        if peak > lim:
+            raise AssertionError(f"720p {tag} encode peak {peak} B > "
+                                 f"vision_vram_demand {lim} B")
     if peak_flash - wbytes >= score_bytes:
         raise AssertionError(f"flash encode peak - weights "
                              f"{peak_flash - wbytes} B >= the N^2 scores "
@@ -1612,7 +1772,7 @@ def vision_path():
     reset_variants()
     f32_flash, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, True)
     variants32 = read_variants()["K4"]
-    if variants32 != {"mma": 0, "fma": vc.layers}:
+    if variants32 != {"mma": 0, "fma": vc.layers * q_chunks}:
         raise AssertionError(f"720p f32 encode: K4 by kernel {variants32}, "
                              "not all on the CUDA cores")
     f32_plain, _, _ = _encode(vlmopt, vc, p32, "720p", torch.float32, False)
@@ -1632,7 +1792,10 @@ def vision_path():
     demand_1440 = vlmopt.vision_vram_demand(vc, "1440p", offload=False,
                                             flash=True)
     log(f"1440p encode (N={n1440}) through K4: {t_1440:.4f} s, peak "
-        f"{peak_1440} B (analytic {demand_1440} B)")
+        f"{peak_1440} B <= analytic {demand_1440} B")
+    if peak_1440 > demand_1440:
+        raise AssertionError(f"1440p flash encode peak {peak_1440} B > "
+                             f"vision_vram_demand {demand_1440} B")
     del params
     free_cuda()
     return {"launches": counts["K4"], "variant_launches": variants,
@@ -1831,6 +1994,280 @@ def vlm_planning(link):
     return out
 
 
+# ------------------------------------------------------------ phase 11
+MOE_ARCH = "qwen30b-a3b"
+MOE_LAYERS = 12          # of 48: every layer has the same shapes
+MOE_BUDGETS = (2.0, 0.5, 0.1)
+# the quantised MoE modes: (tag, config change, the kernel its experts take)
+MOE_QUANT = (("int8-experts", dict(expert_quant="int8"), "K2"),
+             ("int4", dict(weight_quant="int4"), "K3"))
+
+
+def _pinned(shape, dtype, fill=None):
+    import torch
+    t = torch.empty(shape, dtype=dtype, pin_memory=True)
+    if fill is not None:
+        t.fill_(fill)
+    return t
+
+
+def moe_host_params(cfg):
+    """Seeded bf16 weights (f32 router) in the reference's stacked layout
+    in pinned host memory, each matrix drawn on the card by the port's
+    ``dense_init`` and copied back: no (E, d, f) stack is made on the
+    card."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import dense_init
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    E, f = cfg.moe.n_experts, cfg.moe.d_expert
+    bf = torch.bfloat16
+    first = attn.init_attn_params(gen, cfg, bf)
+    layers = {"ln1": _pinned((L, d), bf, 1.0), "ln2": _pinned((L, d), bf, 1.0),
+              "attn": {k: _pinned((L,) + tuple(v.shape), v.dtype)
+                       for k, v in first.items()},
+              "moe": {"router": _pinned((L, d, E), torch.float32),
+                      "w_gate": _pinned((L, E, d, f), bf),
+                      "w_up": _pinned((L, E, d, f), bf),
+                      "w_down": _pinned((L, E, f, d), bf)}}
+    for i in range(L):
+        a = first if i == 0 else attn.init_attn_params(gen, cfg, bf)
+        for k, v in a.items():
+            layers["attn"][k][i].copy_(v)
+        moe = layers["moe"]
+        moe["router"][i].copy_(dense_init(gen, (d, E), 0, torch.float32))
+        for e in range(E):
+            for k, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                             ("w_down", (f, d))):
+                moe[k][i, e].copy_(dense_init(gen, shape, 0, bf))
+    embed = _pinned((V, d), bf)
+    embed.copy_(dense_init(gen, (V, d), 1, bf))
+    unembed = _pinned((d, V), bf)
+    unembed.copy_(dense_init(gen, (d, V), 0, bf))
+    return {"embed": embed, "layers": layers, "unembed": unembed,
+            "final_norm": _pinned((d,), bf, 1.0)}
+
+
+def moe_quantised(params, kw):
+    """``params`` with every expert quantised by the port's quantisers
+    (``expert_quant="int8"`` or ``weight_quant="int4"``) one expert at a
+    time on the card, into pinned host memory; other leaves shared."""
+    import torch
+    from repro_torch.models import mlp
+    moe = params["layers"]["moe"]
+    L, E = moe["w_gate"].shape[:2]
+    out = None
+    for i in range(L):
+        for e in range(E):
+            tree = {k: moe[k][i, e].to("cuda")
+                    for k in ("w_gate", "w_up", "w_down")}
+            q = mlp.quantize_experts_int8(tree) \
+                if kw.get("expert_quant") == "int8" \
+                else mlp.quantize_weight_tree(tree, kw["weight_quant"])
+            if out is None:
+                out = {k: _pinned((L, E) + tuple(v.shape), v.dtype)
+                       for k, v in q.items()}
+            for k, v in q.items():
+                out[k][i, e].copy_(v)
+    torch.cuda.synchronize()
+    return {**params, "layers": {**params["layers"],
+                                 "moe": {"router": moe["router"], **out}}}
+
+
+def moe_run_checks(tag, run, cfg):
+    """One MoE run's gates: the ledger (streamed == static plan +
+    demanded expert bytes, per dtype), peak memory within the bound, and
+    each decode step's demanded experts per layer <= active tokens x
+    top_k. Returns the summary row."""
+    row = summarise(tag, run)
+    sess = run["sess"]
+    ex = sess.executor
+    by = dict(ex.stats.streamed_bytes_by_dtype)
+    want = expected_streamed_by_dtype(ex)
+    if ex.stats.demanded_expert_bytes:
+        q = next(s.meta["quant"] for s in sess.subs
+                 if s.kind == "moe_expert")
+        want[q] = want.get(q, 0) + ex.stats.demanded_expert_bytes
+    if by != want or sum(by.values()) != ex.stats.streamed_bytes:
+        raise AssertionError(f"{tag}: streamed by dtype {by} != static plan "
+                             f"+ demanded experts {want}")
+    lim, parts = memory_bound(sess)
+    log(f"  peak device memory {run['peak']} B <= bound {lim} B {parts}")
+    if run["peak"] > lim:
+        raise AssertionError(f"{tag}: peak {run['peak']} > {lim}")
+    worst = 0
+    for ps in ex.stats.pass_expert_stats:
+        cap = ps["n_active"] * cfg.moe.top_k
+        if len(ps["layer_demanded"]) != cfg.n_layers \
+                or max(ps["layer_demanded"]) > cap:
+            raise AssertionError(f"{tag}: a decode step demanded "
+                                 f"{ps['layer_demanded']} experts per layer, "
+                                 f"more than {cap}")
+        worst = max(worst, max(ps["layer_demanded"]) / cap)
+    log(f"  ledger: streamed {ex.stats.streamed_bytes} B == static plan + "
+        f"{ex.stats.demanded_expert_bytes} B demanded {by}; demanded per "
+        f"decode step and layer at most {worst:.3f} of active tokens x "
+        f"top_k")
+    row.update({"streamed_bytes": ex.stats.streamed_bytes,
+                "streamed_bytes_by_dtype": by,
+                "demanded_expert_bytes": ex.stats.demanded_expert_bytes,
+                "expert_demanded": ex.stats.expert_demanded,
+                "expert_hits": ex.stats.expert_hits,
+                "bound_bytes": lim, "bound_parts": parts,
+                "max_layer_demand_share": worst})
+    return row
+
+
+def moe_path(link):
+    """Phase 11: qwen30b-a3b at its published widths, 12 of 48 layers,
+    served expert-granular and monolithic, in bf16 and quantised."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SYSTEMS, build_graph, run_install, \
+        total_weight_bytes
+    from repro_torch.models import mlp
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    system = SYSTEMS["h100"].with_(link_gbps=link)
+    db = run_install(system)
+    t0 = time.perf_counter()
+    params = moe_host_params(cfg)
+    torch.cuda.synchronize()
+    m = cfg.moe
+    log(f"{MOE_ARCH} at its published widths (d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.resolved_head_dim}, "
+        f"{m.n_experts} experts top-{m.top_k}, d_expert={m.d_expert}, "
+        f"vocab={cfg.vocab}), {cfg.n_layers} of 48 layers: weights drawn "
+        f"on the card and pinned in {time.perf_counter() - t0:.1f} s")
+
+    def totals(c):
+        return {g: total_weight_bytes(build_graph(c, expert_granular=g))
+                for g in (True, False)}
+
+    def serve(c, p, tot, tag, frac, **kw):
+        granular = kw.pop("expert_granular", True)
+        run = serve_once(c, p, db, system, int(tot[granular] * frac),
+                         expert_granular=granular, **kw)
+        row = moe_run_checks(f"moe {tag} {frac}x", run, c)
+        row["tokens"] = run["tokens"]
+        row["prompts"] = [r.prompt for r in run["reqs"]]
+        del run["sess"]
+        free_cuda()
+        return row
+
+    tot = totals(cfg)
+    # warm-up, outside the counted run
+    warm = serve_once(cfg, params, db, system, int(tot[True] * 2.0),
+                      n_req=1, new_tokens=2)
+    warm["sess"].close()
+    del warm
+    free_cuda()
+    rows = {}
+    runs = [("granular", f, {}) for f in MOE_BUDGETS] \
+        + [("monolithic", f, dict(expert_granular=False))
+           for f in MOE_BUDGETS[:2]] \
+        + [("granular-sync", 0.1, dict(overlap=False))]
+    reset_launches()
+    with _CallCount(mlp, "_route") as route, \
+            _CallCount(mlp, "expert_ffn") as experts:
+        for tag, frac, kw in runs:
+            rows[(tag, frac)] = serve(cfg, params, tot, tag, frac, **kw)
+    counts, variants = read_launches(), read_variants()
+    if (counts["K2"], counts["K3"], counts["K4"]) != (0, 0, 0):
+        raise AssertionError(f"moe bf16: other kernels ran: {counts}")
+    if variants["K1"] != {"mma": 3 * experts.calls, "fma": route.calls} \
+            or experts.calls <= 0:
+        raise AssertionError(f"moe bf16: K1 by kernel {variants['K1']}, not "
+                             f"3 x {experts.calls} expert calls on the "
+                             f"tensor cores and {route.calls} router calls "
+                             "in f32")
+    log(f"K1 launches on the moe path: {counts['K1']} == 3 x "
+        f"{experts.calls} expert calls, all mma, + {route.calls} router "
+        f"calls in f32 (by kernel {variants['K1']})")
+    base = rows[("granular", 2.0)]["tokens"]
+    for key, row in rows.items():
+        if row["tokens"] != base:
+            raise AssertionError(f"moe {key}: tokens differ from granular "
+                                 "2.0x")
+    log("moe tokens identical across granular 2.0x, 0.5x, 0.1x, monolithic "
+        "2.0x, 0.5x and sync 0.1x: True")
+    sync, ovl = rows[("granular-sync", 0.1)], rows[("granular", 0.1)]
+    if (sync["streamed_bytes"], sync["streamed_bytes_by_dtype"]) != \
+            (ovl["streamed_bytes"], ovl["streamed_bytes_by_dtype"]):
+        raise AssertionError("moe overlap and sync streamed other bytes")
+    if ovl["demanded_expert_bytes"] <= 0:
+        raise AssertionError("moe 0.1x demanded no expert")
+    log(f"moe overlap == sync at 0.1x: {ovl['streamed_bytes']} B streamed "
+        "each")
+    gap = teacher_forced_check(cfg, params, base,
+                               rows[("granular", 2.0)]["prompts"])
+    log(f"moe served tokens == plain monolithic greedy under teacher forcing "
+        f"(max logit gap {gap:.4f})")
+    out = {"rows": {f"{t} {f}x": {k: v for k, v in r.items()
+                                  if k not in ("tokens", "prompts")}
+                    for (t, f), r in rows.items()},
+           "launches": counts["K1"], "variants": variants["K1"],
+           "route_calls": route.calls, "expert_calls": experts.calls,
+           "teacher_forced_gap": gap, "layers": cfg.n_layers,
+           "weight_bytes": tot, "quant": {}}
+    out["profile"] = profile_phase(cfg, params, db, system,
+                                   int(tot[True] * 0.1), tag="moe 0.1x")
+    for qtag, kw, kname in MOE_QUANT:
+        t0 = time.perf_counter()
+        qparams = moe_quantised(params, kw)
+        qcfg = cfg.replace(**kw)
+        qtot = totals(qcfg)
+        log(f"moe {qtag}: experts quantised on the card in "
+            f"{time.perf_counter() - t0:.1f} s; weight bytes {qtot[True]} B")
+        qrows = {}
+        reset_launches()
+        with _CallCount(mlp, "_route") as route, \
+                _CallCount(mlp, "expert_ffn") as experts, \
+                _CallCount(mlp, "_dequant") as deq:
+            for tag, frac, gkw in (("granular", 0.5, {}),
+                                   ("monolithic", 0.5,
+                                    dict(expert_granular=False)),
+                                   ("granular", 0.1, {})):
+                qrows[(tag, frac)] = serve(qcfg, qparams, qtot,
+                                           f"{qtag} {tag}", frac, **gkw)
+        counts, variants = read_launches(), read_variants()
+        want = {"K1": route.calls, "K2": 0, "K3": 0, "K4": 0}
+        want[kname] = 3 * experts.calls
+        if counts != want or experts.calls <= 0 or deq.calls \
+                or variants[kname] != {"mma": want[kname], "fma": 0} \
+                or variants["K1"] != {"mma": 0, "fma": route.calls}:
+            raise AssertionError(f"moe {qtag}: launches {counts} by kernel "
+                                 f"{variants}, _dequant {deq.calls}; want "
+                                 f"{want}, experts all mma, router f32")
+        log(f"{kname} launches on the moe {qtag} path: {want[kname]} == 3 x "
+            f"{experts.calls} expert calls (by kernel {variants[kname]}); "
+            f"K1 {route.calls} router calls in f32; _dequant 0")
+        qbase = qrows[("granular", 0.5)]["tokens"]
+        for key, row in qrows.items():
+            if row["tokens"] != qbase:
+                raise AssertionError(f"moe {qtag} {key}: tokens differ from "
+                                     "granular 0.5x")
+        log(f"moe {qtag} tokens identical: granular 0.5x == monolithic 0.5x "
+            "== granular 0.1x")
+        qgap = teacher_forced_check(qcfg, qparams, qbase,
+                                    qrows[("granular", 0.5)]["prompts"])
+        log(f"moe {qtag} served tokens == plain monolithic greedy under "
+            f"teacher forcing (max logit gap {qgap:.4f})")
+        out["quant"][qtag] = {
+            "rows": {f"{t} {f}x": {k: v for k, v in r.items()
+                                   if k not in ("tokens", "prompts")}
+                     for (t, f), r in qrows.items()},
+            "kernel": kname, "launches": want[kname],
+            "variants": variants[kname], "weight_bytes": qtot,
+            "teacher_forced_gap": qgap}
+        del qparams
+        free_cuda()
+    del params
+    free_cuda()
+    return out
+
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -1927,6 +2364,8 @@ def main() -> int:
     vision = vision_path()
     language = language_path()
     planning = vlm_planning(main["link_gbps"])
+    free_cuda()
+    moe = moe_path(main["link_gbps"])
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
                     "link_gbps": main["link_gbps"],
@@ -1935,20 +2374,26 @@ def main() -> int:
                             "planning": planning,
                             "k4_block_q_bit_equal":
                                 fkern["block_q_bit_equal"]},
+                    "moe": moe,
                     "seconds": time.perf_counter() - t_start}))
+    # kernel -> (the MoE run's tag, its results)
+    moe_q = {kname: (qtag, moe["quant"][qtag])
+             for qtag, _, kname in MOE_QUANT}
     kernels = [
         kernel_entry("streamed_matmul", "streamed_matmul.py:95",
-                     main["launches"],
+                     main["launches"] + moe["launches"],
                      kern["max_abs_err"], kern["shapes"],
                      headline(kern["shapes"]),
                      source="streamed_matmul_mma"),
         kernel_entry("streamed_matmul_int8", "streamed_matmul.py:212",
-                     main["quant"]["int8"]["launches"],
+                     main["quant"]["int8"]["launches"]
+                     + moe_q["K2"][1]["launches"],
                      qkern["int8"]["max_abs_err"], qkern["int8"]["shapes"],
                      headline(qkern["int8"]["shapes"]),
                      source="streamed_matmul_mma"),
         kernel_entry("streamed_matmul_int4", "streamed_matmul.py:289",
-                     main["quant"]["int4"]["launches"],
+                     main["quant"]["int4"]["launches"]
+                     + moe_q["K3"][1]["launches"],
                      qkern["int4"]["max_abs_err"], qkern["int4"]["shapes"],
                      headline(qkern["int4"]["shapes"]),
                      source="streamed_matmul_mma"),
@@ -1957,11 +2402,19 @@ def main() -> int:
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
                      source="flash_attention_mma")]
-    kernels[0].update({"launches_by_variant": main["variants"]["K1"],
+    kernels[0].update({"launches_by_path": {
+                           "qwen2-0.5b": main["launches"],
+                           MOE_ARCH: moe["launches"]},
+                       "launches_by_variant": {
+                           "qwen2-0.5b": main["variants"]["K1"],
+                           MOE_ARCH: moe["variants"]},
                        "check_launches_by_variant":
                            kern["variant_launches"]})
-    for entry, mode in zip(kernels[1:3], QUANT_MODES):
+    for entry, mode, kname in zip(kernels[1:3], QUANT_MODES, ("K2", "K3")):
         entry.update({
+            "launches_by_path": {
+                f"qwen2-0.5b {mode}": main["quant"][mode]["launches"],
+                f"{MOE_ARCH} {moe_q[kname][0]}": moe_q[kname][1]["launches"]},
             "launches_by_variant": main["quant"][mode]["variants"],
             "check_launches_by_variant": qkern[mode]["variant_launches"],
             "round_excess": qkern[mode]["round_excess"],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K1, K2, K3 and K4 in bf16 at the main paths' shapes on one card.
 
-    python3 kernel_times.py [--src DIR]
+    python3 kernel_times.py [--src DIR] [--encode]
 
 Imports ``repro_torch`` from ``DIR`` (this checkout's ``src`` by default),
 so that two trees can be timed in one call on one card: unpack the other
@@ -14,22 +14,68 @@ whichever the tree runs). The shapes are ``chip_smoke.py``'s: K1, K2
 (int8) and K3 (int4) at qwen2-0.5b's FFN projections for M = 1, 4, 64,
 256 and at qwen3-14b's for M = 1, 4, K2 and K3 on weights quantised on
 the card by the tree's own quantisers; K4 at the 720p vision encoder's
-and qwen2-vl-7b's T=4096 attention. The last line is one JSON object.
+and qwen2-vl-7b's T=4096 attention. With ``--encode`` it times the
+tree's whole VLM vision encoder instead (``encode_times``). The last
+line is one JSON object.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as cs
+
+
+def encode_times(vlmopt, reps=3):
+    """The tree's vision encoder (``VisionConfig()``, seeded bf16 weights,
+    B=1): ``reps`` encodes each at 720p flash, 720p plain and 1440p flash,
+    every one on fresh seeded patches, with its wall seconds (host clock,
+    synchronised) and peak device bytes (weights included) beside
+    ``vision_vram_demand``."""
+    import torch
+    vc = vlmopt.VisionConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = vlmopt.init_vision_params(gen, vc, torch.bfloat16)
+    for flash in (True, False):     # warm-up: library loading, builds
+        vlmopt.vision_encode(params, vc, torch.zeros(
+            (1, 64, vc.d), dtype=torch.bfloat16, device="cuda"), flash=flash)
+    pg = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    for res, flash in (("720p", True), ("720p", False), ("1440p", True)):
+        n = vlmopt.n_vision_tokens(vc, res)
+        walls, peaks = [], []
+        for _ in range(reps):
+            patches = torch.randn((1, n, vc.d), generator=pg,
+                                  device="cuda").to(torch.bfloat16)
+            cs.free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y = vlmopt.vision_encode(params, vc, patches, flash=flash)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            del y, patches
+        demand = vlmopt.vision_vram_demand(vc, res, offload=False,
+                                           flash=flash)
+        out.append({"res": res, "flash": flash, "n": n, "wall_s": walls,
+                    "peak_bytes": peaks, "demand_bytes": demand})
+        cs.log(f"encode {res} {'flash' if flash else 'plain'}: wall "
+               f"{', '.join(f'{w:.4f}' for w in walls)} s, peak "
+               f"{max(peaks) / 1e6:.1f} MB (demand {demand / 1e6:.1f} MB)")
+    del params
+    cs.free_cuda()
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(cs.SRC),
                     help="directory holding the repro_torch package")
+    ap.add_argument("--encode", action="store_true",
+                    help="time the vision encoder, not the kernels")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -40,6 +86,13 @@ def main() -> int:
         print(f"kernel_times: no repro_torch under {src}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.encode:
+        from repro_torch.core import vlmopt
+        card = cs.card_line()
+        cs.log(card)
+        print(json.dumps({"card": card, "src": str(src),
+                          "encode": encode_times(vlmopt)}))
+        return 0
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
     from repro_torch.kernels.streamed_matmul import streamed_matmul

@@ -13,13 +13,15 @@ only the residual output. ``layer``, ``slot``, ``pos`` and ``valid_len`` are
 host integers; a decode step's per-slot positions and active mask are
 tensors on the device.
 
-Every dense FFN matmul goes through the streamed matmul of its weight's
-format (``_mm_dispatch``): K1 for bf16/f32 weights, K2 for grouped int8,
-K3 for packed int4 (``kernels.streamed_matmul``), pinned and streamed
-placements alike. On the card each is a hand-written kernel for any shape
-and any quantisation grouping (they mask ragged tiles and take ragged
-groups, so the reference's divisibility and ragged-group vetoes do not
-carry over), on the CPU its plain version. One kernel for every placement
+Every dense FFN and MoE expert matmul goes through the streamed matmul of
+its weight's format (``models.mlp._mm_dispatch``): K1 for bf16/f32
+weights, K2 for grouped or per-expert int8, K3 for packed int4
+(``kernels.streamed_matmul``), pinned and streamed placements alike; the
+MoE router's f32 logits go through K1 in f32. On the card each is a
+hand-written kernel for any shape and any quantisation grouping (they
+mask ragged tiles and take ragged groups, so the reference's
+divisibility and ragged-group vetoes do not carry over), on the CPU its
+plain version. One kernel for every placement
 keeps the tokens identical across budgets: a placement change never
 changes the order of a sum. The served path never dequantises a weight
 outside the kernels.
@@ -28,12 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.streamed_matmul import (streamed_matmul,
-                                                 streamed_matmul_int4,
-                                                 streamed_matmul_int8)
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.mlp import activate
+from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import rmsnorm
+from repro_torch.models.mlp import _mm_dispatch, activate
 
 
 def _positions(B, T, pos, device):
@@ -105,18 +105,6 @@ def ffn_step(cfg, w, x):
                                                     cfg.norm_eps))
 
 
-def _mm_dispatch(x2, p, name):
-    """One matmul through the streamed kernel of the weight's storage
-    format, dequantisation fused into the kernel for the quantised ones."""
-    w = p[name]
-    if w.dtype == torch.uint8:   # packed int4
-        return streamed_matmul_int4(x2, w, p[f"s{name[1:]}"],
-                                    p[f"z{name[1:]}"])
-    if w.dtype == torch.int8:    # grouped int8
-        return streamed_matmul_int8(x2, w, p[f"s{name[1:]}"])
-    return streamed_matmul(x2, w)
-
-
 def _ffn_streamed(cfg, p, h):
     """Dense FFN with all matmuls through ``_mm_dispatch``."""
     B, T, d = h.shape
@@ -127,6 +115,82 @@ def _ffn_streamed(cfg, p, h):
     else:
         hh = activate(cfg, None, _mm_dispatch(x2, p, "w_up"))
     return _mm_dispatch(hh, p, "w_down").reshape(B, T, d)
+
+
+# ------------------------------------------------------------ moe
+def _valid_mask(B, T, valid_len, device):
+    return (torch.arange(T, device=device)[None, :] < valid_len) \
+        .expand(B, T)
+
+
+def moe_step(cfg, w, x):
+    """The monolithic MoE sub-layer: x + moe_ffn(rmsnorm(x)).
+    w: {"moe": the layer's MoE tree (split per expert), "ln2"}."""
+    return x + mlp_mod.moe_ffn(w["moe"], cfg,
+                               rmsnorm(x, w["ln2"], cfg.norm_eps))
+
+
+def moe_prefill_step(cfg, w, x, valid_len: int):
+    """Monolithic MoE for a layer-major prefill chunk: positions at or
+    past ``valid_len`` (a padded tail) route to no expert, so a padded
+    chunk equals the unpadded one on its valid positions."""
+    B, T, _ = x.shape
+    valid = _valid_mask(B, T, valid_len, x.device)
+    return x + mlp_mod.moe_ffn(w["moe"], cfg,
+                               rmsnorm(x, w["ln2"], cfg.norm_eps),
+                               valid=valid)
+
+
+# Expert-granular MoE: ``moe_step`` in three phases, so the executor can
+# demand-stream the cold experts the router selected:
+#   route   -> top-k and the capacity dispatch; the executor reads the
+#              selected expert ids on the host and requests only those;
+#   experts -> ``expert_ffn`` for some of the routed experts, written into
+#              the layer's (E, C, d) output buffer; called for the pinned
+#              experts while the cold ones copy, then once per cold expert
+#              between its acquire and its release;
+#   combine -> the gather, gate and k-ordered sum of ``moe_combine``.
+# Each op is ``moe_ffn``'s, and each expert's rows depend only on its own
+# weights, so the phased sub-layer equals the monolithic one bit for bit.
+# The reference's ``fold_expert_step`` (one executable for folding a
+# staged expert into a zero-filled stack) has no counterpart: no stack is
+# built, an expert computes from the tree it was staged in.
+def _route_dispatch(cfg, w, x, valid=None):
+    m = cfg.moe
+    B, T, d = x.shape
+    h = rmsnorm(x, w["ln2"], cfg.norm_eps).reshape(B * T, d)
+    gates, idx, _ = mlp_mod._route(h, w["router"], m)
+    if valid is not None:
+        idx = torch.where(valid.reshape(B * T)[:, None], idx, m.n_experts)
+    disp, aux = mlp_mod.moe_dispatch(h, gates, idx, m, m.n_experts, 0,
+                                     mlp_mod.capacity_of(B * T, m))
+    return disp, aux, idx
+
+
+def moe_route_step(cfg, w, x):
+    """w: {"router", "ln2"}; x: (B, T, d). Returns (disp, aux, idx)."""
+    return _route_dispatch(cfg, w, x)
+
+
+def moe_route_prefill_step(cfg, w, x, valid_len: int):
+    """``moe_route_step`` for a layer-major prefill chunk: positions at or
+    past ``valid_len`` route to expert id E, out of range, so they claim
+    no capacity and never enter the demanded set."""
+    B, T, _ = x.shape
+    return _route_dispatch(cfg, w, x,
+                           valid=_valid_mask(B, T, valid_len, x.device))
+
+
+def moe_experts_step(experts, disp, out_buf):
+    """``expert_ffn`` for each ``(e, tree)`` of ``experts`` into
+    ``out_buf[e]``."""
+    mlp_mod.moe_experts(experts, disp, out_buf)
+
+
+def moe_combine_step(x, out_buf, aux):
+    B, T, d = x.shape
+    return x + mlp_mod.moe_combine(out_buf, aux, B * T, x.dtype) \
+        .reshape(B, T, d)
 
 
 # ------------------------------------------------------------ ends

@@ -35,6 +35,10 @@ class ProfileDB:
     def __init__(self):
         self.entries: Dict[tuple, List[Entry]] = defaultdict(list)
         self.meta: dict = {}
+        # lookup results by query, dropped whenever an entry is added: the
+        # planner asks the same few hundred queries hundreds of thousands
+        # of times for an expert-granular graph
+        self._found: dict = {}
 
     @staticmethod
     def key(engine: str, op: str, dtype_bytes: int, threads: int,
@@ -43,11 +47,19 @@ class ProfileDB:
 
     def add(self, key: tuple, dims, gflops: float, gbps: float):
         self.entries[key].append(Entry(tuple(dims), gflops, gbps))
+        self._found.clear()
 
     # ---------------------------------------------------------- lookup
     def lookup(self, engine, op, dtype_bytes, threads, dims,
                pcie_active=False) -> Optional[Tuple[Entry, str]]:
         """Returns (entry, match_kind) or None; match_kind in exact|partial."""
+        query = (engine, op, dtype_bytes, threads, tuple(dims),
+                 bool(pcie_active))
+        if query not in self._found:
+            self._found[query] = self._lookup(*query)
+        return self._found[query]
+
+    def _lookup(self, engine, op, dtype_bytes, threads, dims, pcie_active):
         k = self.key(engine, op, dtype_bytes, threads, pcie_active)
         cands = self.entries.get(k)
         if not cands:

@@ -367,4 +367,10 @@ class ContinuousBatcher:
                 if self.ex.stats.prefill_stats else 0.0),
             "rebudgets": len(self.rebudget_log),
             "rebind_s": self.ex.stats.rebind_s,
+            # expert-granular MoE: how often the routers hit the pinned
+            # hot set, and demanded against resident expert bytes
+            "expert_hit_rate": self.ex.stats.expert_hit_rate,
+            "expert_demanded": self.ex.stats.expert_demanded,
+            "demanded_expert_bytes": self.ex.stats.demanded_expert_bytes,
+            "resident_expert_bytes": self.ex.stats.resident_expert_bytes,
         }

@@ -11,10 +11,13 @@
 The analytic VRAM model is the reference's, copied (its integers equal the
 reference's). The runnable ViT-style encoder runs its attention through K4
 (``attend_flash``) with ``flash=True``, or fully materialised
-(``attend_ref``) with ``flash=False``. Unlike the reference's, the flash
-encoder runs every resolution: K4 masks a ragged last KV-chunk, so N need
-not be a multiple of ``min(1024, N)``. Offload (1.) and the patch merger
-are modelled analytically only, as in the reference.
+(``attend_plain``, ``attend_ref``'s computation) with ``flash=False``, and
+stays within ``vision_vram_demand`` on the card in both: it overwrites its
+patches with the residual stream and runs in row chunks. Unlike the
+reference's, the flash encoder runs every resolution: K4 masks a ragged
+last KV-chunk, so N need not be a multiple of ``min(1024, N)``. Offload
+(1.) and the patch merger are modelled analytically only, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attend_flash, attend_ref
+from repro_torch.models.attention import attend_flash
 from repro_torch.models.common import dense_init, rmsnorm
 
 
@@ -107,15 +110,60 @@ def init_vision_params(gen: torch.Generator, vc: VisionConfig,
     return p
 
 
+def _row_chunks(n: int, rows: int):
+    return [(r, min(r + rows, n)) for r in range(0, n, rows)]
+
+
+def ffn_rows(n: int) -> int:
+    """Rows of one FFN chunk: the room k and v held in attention, 2 N x d
+    elements, over the 8 x d elements a row keeps live (its 4 d hidden and
+    the gelu of it), so the FFN never holds more than the attention before
+    it: N / 4, rounded up."""
+    return max(1, -(-n // 4))
+
+
+def attend_plain(q, k, v):
+    """Bidirectional attention fully materialised, as ``attend_ref``
+    computes it (bf16 scores rounded once, then f32, softmax, p in the
+    input dtype, ``p @ v``), with the f32 scores and the probabilities in
+    one buffer: the scale and the softmax are written in place, so the
+    encoder's plain path holds one (B, KV, G, N, N) f32 tensor where the
+    analytic model counts two. q: (B, N, H, hd); k, v: (B, N, KV, hd)."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k)
+    s32 = s.to(torch.float32)
+    del s
+    s32.mul_(hd ** -0.5)
+    s32.sub_(s32.amax(dim=-1, keepdim=True))
+    s32.exp_()
+    s32.div_(s32.sum(dim=-1, keepdim=True))
+    p = s32.to(v.dtype)
+    del s32
+    o = torch.einsum("bkgts,bskd->btkgd", p, v)
+    return o.reshape(B, T, H, hd)
+
+
 def vision_encode(params, vc: VisionConfig, patches: torch.Tensor, *,
                   flash: bool, q_chunk: int = 1024, device=None):
-    """patches: (B, N, d) precomputed patch embeddings -> (B, N, d).
+    """patches: (B, N, d) precomputed patch embeddings -> (B, N, d), the
+    result written into ``patches`` itself, which is returned: the patch
+    embeddings are the residual stream (a VLM pipeline hands them over as
+    a temporary; a caller that needs them afterwards passes a clone).
 
-    Bidirectional (non-causal) attention; the flash path runs K4 with a
-    KV-chunk of ``min(1024, N)``. ``q_chunk`` is passed on as K4's
-    ``block_q``: K4 tiles the query axis by its own fixed rows, so it needs
-    none of the reference's search for a divisor of N and no value changes
-    a result. Runs on the card unless ``device="cpu"``; the patches and the
+    Bidirectional (non-causal) attention. The live activations are the
+    residual and, in attention, k and v: the analytic model's three N x d
+    activations. The flash path projects k and v in row chunks of
+    ``q_chunk``, then runs each chunk of ``q_chunk`` queries (its rmsnorm
+    computed again, as holding q or the normed rows for all N would take a
+    fourth N x d) through one K4 launch against all keys, with a KV-chunk
+    of ``min(1024, N)`` (K4 masks ragged chunks, so N need not be a
+    multiple of either); chunk-sized temporaries live in the room of the
+    model's score term. The plain path computes full q, k, v and
+    ``attend_plain``'s materialised scores, the paper's baseline. On both,
+    each FFN runs in chunks of ``ffn_rows(N)`` rows, in the room k and v
+    held. Runs on the card unless ``device="cpu"``; the patches and the
     weights must already lie there."""
     device = resolve_device(device)
     for t in [patches] + list(params.values()):
@@ -123,21 +171,44 @@ def vision_encode(params, vc: VisionConfig, patches: torch.Tensor, *,
                 None, t.device.index):
             raise ValueError(f"vision_encode runs on {device}; a tensor "
                              f"lies on {t.device}")
-    hd = vc.d // vc.heads
+    d, H = vc.d, vc.heads
+    hd = d // H
     B, N, _ = patches.shape
+    rows = _row_chunks(N, q_chunk)
     x = patches
     for i in range(vc.layers):
         lp = {k: v[i] for k, v in params.items()}
-        h = rmsnorm(x, lp["ln1"], 1e-6)
-        q, k, v = (t.reshape(B, N, vc.heads, hd)
-                   for t in torch.chunk(h @ lp["wqkv"], 3, dim=-1))
+        wqkv = lp["wqkv"]
         if flash:
-            o = attend_flash(q, k, v, causal=False, q_chunk=q_chunk,
-                             kv_chunk=min(1024, N))
+            kv = torch.empty((B, N, 2 * d), dtype=x.dtype, device=x.device)
+            for r0, r1 in rows:
+                kv[:, r0:r1] = rmsnorm(x[:, r0:r1], lp["ln1"], 1e-6) \
+                    @ wqkv[:, d:]
+            k = kv[..., :d].reshape(B, N, H, hd)
+            v = kv[..., d:].reshape(B, N, H, hd)
+            for r0, r1 in rows:
+                q = (rmsnorm(x[:, r0:r1], lp["ln1"], 1e-6) @ wqkv[:, :d]) \
+                    .reshape(B, r1 - r0, H, hd)
+                o = attend_flash(q, k, v, causal=False, q_chunk=q_chunk,
+                                 kv_chunk=min(1024, N))
+                del q
+                x[:, r0:r1] += o.reshape(B, r1 - r0, d) @ lp["wo"]
+                del o
+            del kv, k, v
         else:
-            o = attend_ref(q, k, v, causal=False)
-        x = x + o.reshape(B, N, vc.d) @ lp["wo"]
-        h = rmsnorm(x, lp["ln2"], 1e-6)
-        # the tanh approximation, as jax.nn.gelu's default
-        x = x + F.gelu(h @ lp["w_up"], approximate="tanh") @ lp["w_down"]
+            q, k, v = (t.reshape(B, N, H, hd) for t in torch.chunk(
+                rmsnorm(x, lp["ln1"], 1e-6) @ wqkv, 3, dim=-1))
+            o = attend_plain(q, k, v)
+            del q, k, v
+            x += o.reshape(B, N, d) @ lp["wo"]
+            del o
+        for r0, r1 in _row_chunks(N, ffn_rows(N)):
+            h = rmsnorm(x[:, r0:r1], lp["ln2"], 1e-6)
+            u = h @ lp["w_up"]
+            del h
+            # the tanh approximation, as jax.nn.gelu's default
+            g = F.gelu(u, approximate="tanh")
+            del u
+            x[:, r0:r1] += g @ lp["w_down"]
+            del g
     return x

@@ -61,7 +61,8 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 def params_from_numpy(tree):
     """The JAX package's param tree, given as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree: same keys,
-    same stacked per-layer layout, same bits."""
+    same stacked per-layer layout, same bits — MoE expert stacks with
+    their int8 / packed int4 codes, scales and zero-points included."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree))

@@ -1,5 +1,8 @@
-"""Dense decoder-only LM (and the VLM backbone): parameters, KV cache and
-the monolithic forward.
+"""Decoder-only LM — dense, MoE and the VLM backbone: parameters, KV cache
+and the monolithic forward.
+
+An MoE layer holds ``"moe"`` (router and stacked experts, ``models.mlp``)
+where a dense layer holds ``"ffn"``.
 
 The vlm family is the dense decoder with M-RoPE and a stub frontend, as in
 the reference: precomputed vision embeddings arrive in the batch
@@ -24,21 +27,25 @@ from repro_torch.models.common import dtype_of, dense_init, rmsnorm, tree_map
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family={cfg.family!r} is not ported yet: the port runs dense "
-            "decoders and the VLM backbone (MoE, audio, SSM and hybrid "
+            "and MoE decoders and the VLM backbone (audio, SSM and hybrid "
             "models are later slices)")
 
 
 # ---------------------------------------------------------------- params
 def init_layer_params(gen, cfg, dtype):
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
         "attn": attn.init_attn_params(gen, cfg, dtype),
-        "ffn": mlp.init_ffn_params(gen, cfg, dtype),
     }
+    if cfg.moe is not None:
+        p["moe"] = mlp.init_moe_params(gen, cfg, dtype)
+    else:
+        p["ffn"] = mlp.init_ffn_params(gen, cfg, dtype)
+    return p
 
 
 def init_params(cfg, gen: torch.Generator):
@@ -74,20 +81,27 @@ def layer_slice(layers, i):
     return tree_map(lambda t: t[i], layers)
 
 
-def quantize_params(params, weight_quant):
-    """A float param tree with every layer's FFN quantised as
-    ``init_params`` would under ``cfg.weight_quant`` (int8 codes + scales,
-    or packed int4 + scales + zeros, stacked per layer); other leaves are
-    shared with ``params``. Lets one set of weights serve every mode."""
-    if weight_quant == "fp16":
+def quantize_params(params, weight_quant, expert_quant="none"):
+    """A float param tree with every layer's FFN (or MoE experts)
+    quantised as ``init_params`` would under ``cfg.weight_quant`` (int8
+    codes + scales, or packed int4 + scales + zeros) or, for MoE,
+    ``cfg.expert_quant`` (int8 codes + one scale per expert), stacked per
+    layer; other leaves are shared with ``params``. Lets one set of
+    weights serve every mode."""
+    key = "moe" if "moe" in params["layers"] else "ffn"
+    if weight_quant == "fp16" and (key == "ffn" or expert_quant == "none"):
         return params
-    ffn = params["layers"]["ffn"]
-    n_layers = next(iter(ffn.values())).shape[0]
-    per_layer = [mlp.quantize_weight_tree(layer_slice(ffn, i), weight_quant)
-                 for i in range(n_layers)]
+    tree = params["layers"][key]
+    n_layers = next(iter(tree.values())).shape[0]
+    per_layer = []
+    for i in range(n_layers):
+        lp = layer_slice(tree, i)
+        if expert_quant == "int8":
+            lp = mlp.quantize_experts_int8(lp)
+        per_layer.append(mlp.quantize_weight_tree(lp, weight_quant))
     stacked = {k: torch.stack([lp[k] for lp in per_layer])
                for k in per_layer[0]}
-    return {**params, "layers": {**params["layers"], "ffn": stacked}}
+    return {**params, "layers": {**params["layers"], key: stacked}}
 
 
 # ---------------------------------------------------------------- cache
@@ -111,7 +125,10 @@ def layer_body(lp, cfg, x, positions, cache_kv, cache_pos):
                                 positions, cache=cache_kv,
                                 cache_pos=cache_pos)
     x = x + h
-    return x + mlp.ffn(lp["ffn"], cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    hin = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + mlp.moe_block(lp["moe"], cfg, hin)
+    return x + mlp.ffn(lp["ffn"], cfg, hin)
 
 
 def logits_head(params, cfg, x):
@@ -124,7 +141,9 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
     """Returns (logits, cache). batch: {"tokens": (B, T) int tensor}, and
     for the vlm family optionally "vision_embeds" (B, nv, d), placed in
     front of the tokens, and "positions" (3, B, T) for M-RoPE (required);
-    cache: stacked KV dict, written in place."""
+    cache: stacked KV dict, written in place. ``params["layers"]`` is the
+    stacked tree, or a list of per-layer trees (an MoE layer's possibly
+    split per expert, ``mlp.split_experts``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -138,8 +157,9 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
         base = cache_pos if cache_pos is not None else 0
         positions = (base + torch.arange(T, device=x.device))[None, :] \
             .expand(B, T)
+    layers = params["layers"]
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+        lp = layers[i] if isinstance(layers, list) else layer_slice(layers, i)
         ckv = None if cache is None else {"k": cache["k"][i],
                                           "v": cache["v"][i]}
         x = layer_body(lp, cfg, x, positions, ckv, cache_pos)

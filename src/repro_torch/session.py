@@ -12,9 +12,14 @@ into sub-layers and plans the tier table; the executor, the model
 parameters and the continuous batcher are built lazily on first use, so
 planning-only sessions never allocate weights.
 
-The port serves dense decoders greedily with bf16 weights, or with grouped
-int8 / packed int4 FFN weights (``cfg.weight_quant``), and stacked KV, on
-the CUDA card unless the caller passes ``device="cpu"``. A vlm session
+The port serves dense and MoE decoders greedily with bf16 weights, or with
+grouped int8 / packed int4 FFN and expert weights (``cfg.weight_quant``) or
+per-expert int8 experts (``cfg.expert_quant``), and stacked KV, on the CUDA
+card unless the caller passes ``device="cpu"``. MoE models default to
+expert-granular placement: the planner pins hot experts one by one
+(routing stats seeded from the profile DB, refined online by the
+executor's EMA) and the executor streams only the cold experts the
+routers select. A vlm session
 (qwen2-vl-7b's language stack) is planning-only, as in the reference: it
 builds the graph, the schedule and the estimates, and its executor,
 batcher, ``generate`` and ``serve`` raise. The reference's other options
@@ -57,11 +62,9 @@ class Session:
                  expert_granular: Optional[bool] = None,
                  kv_layout: Optional[str] = None,
                  draft_cfg=None, spec_k: int = 0, faults=None):
-        if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
+        if cfg.family not in ("dense", "moe", "vlm"):
             _not_ported(f"family={cfg.family!r}",
-                        "MoE / audio / SSM / hybrid model")
-        if expert_granular:
-            _not_ported("expert_granular=True", "expert-granular MoE")
+                        "audio / SSM / hybrid model")
         if kv_layout not in (None, "stacked"):
             if kv_layout == "paged":
                 _not_ported("kv_layout='paged'", "paged-KV")
@@ -71,8 +74,6 @@ class Session:
                         "speculative-decoding")
         if faults is not None:
             _not_ported("fault injection (faults)", "faults")
-        if cfg.expert_quant != "none":
-            _not_ported(f"expert_quant={cfg.expert_quant!r}", "MoE")
         if prefill_mode not in (None, "layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.device = resolve_device(device)
@@ -88,7 +89,19 @@ class Session:
         self.db = db if db is not None else run_install(system,
                                                         quick=quick_install)
         self.est = TimingEstimator(self.db, system)
-        self.subs = build_graph(cfg, wdtype=wdtype)
+        # MoE models default to expert-granular placement; an explicit
+        # True that cannot be honoured raises rather than being coerced
+        if expert_granular is None:
+            expert_granular = cfg.moe is not None
+        elif expert_granular and cfg.moe is None:
+            raise ValueError("expert_granular=True requires an MoE config "
+                             f"({cfg.name} has no moe block)")
+        self.expert_granular = bool(expert_granular)
+        routing = self.db.get_routing(cfg.name) if self.expert_granular \
+            else None
+        self.subs = build_graph(cfg, wdtype=wdtype,
+                                expert_granular=self.expert_granular,
+                                routing=routing)
         self.schedule: Schedule = build_schedule(budget_bytes, self.subs,
                                                  self.est, setting, tiers)
         self.replan_log: List[ScheduleDiff] = []
@@ -127,11 +140,10 @@ class Session:
         """The bound executor (built on first use; planning-only sessions
         never construct it)."""
         if self._executor is None:
-            if self.cfg.family != "dense":
+            if self.cfg.family not in ("dense", "moe"):
                 raise NotImplementedError(
-                    "the executor runs the dense family (the reference's "
-                    f"covers dense/moe); this {self.cfg.family} session is "
-                    "planning-only")
+                    "the executor runs the dense and moe families; this "
+                    f"{self.cfg.family} session is planning-only")
             self._executor = PipelinedExecutor(
                 self.cfg, self.params, self.schedule, max_seq=self.max_seq,
                 overlap=self.overlap, prefill_mode=self.prefill_mode,
@@ -201,12 +213,26 @@ class Session:
         dtypes — any ``InferenceSetting`` field) and apply the delta live."""
         return self._replan(setting=replace(self.setting, **changes))
 
+    def _refresh_routing_stats(self):
+        """Fold the executor's online routing EMA back into the profile DB
+        and the expert shards' ``hot`` metadata, so the next plan pins the
+        observed hot set rather than the seeded one."""
+        if not self.expert_granular or self._executor is None:
+            return
+        ema = self._executor.expert_ema
+        for layer, freqs in ema.items():
+            self.db.set_routing(self.cfg.name, layer, freqs)
+        for s in self.subs:
+            if s.kind == "moe_expert" and s.layer in ema:
+                s.meta["hot"] = float(ema[s.layer][s.meta["expert"]])
+
     def _replan(self, budget_bytes: Optional[int] = None,
                 setting: Optional[InferenceSetting] = None) -> ScheduleDiff:
         if budget_bytes is not None:
             self.budget_bytes = budget_bytes
         if setting is not None:
             self.setting = setting
+        self._refresh_routing_stats()
         new = build_schedule(self.budget_bytes, self.subs, self.est,
                              self.setting, self.tiers)
         diff = self.schedule.diff(new)
@@ -276,6 +302,13 @@ class Session:
                 "rebind_evicted_bytes": ex.rebind_evicted_bytes,
                 "rebind_s": ex.rebind_s,
             }
+            if self.expert_granular:
+                out["executor"].update({
+                    "expert_hit_rate": ex.expert_hit_rate,
+                    "expert_demanded": ex.expert_demanded,
+                    "demanded_expert_bytes": ex.demanded_expert_bytes,
+                    "resident_expert_bytes": ex.resident_expert_bytes,
+                })
         if self._batcher is not None:
             out["serving"] = self._batcher.stats()
         return out

@@ -305,15 +305,21 @@ def test_greedy_agreement_with_fp16_port(mode, floor):
                zip(tree_leaves(init), tree_leaves(qp)))
 
 
-# ------------------------------------------------------------ what raises
+# ------------------------------------------------------------ MoE weights
 def test_stacked_expert_weights_raise_naming_moe():
-    p = {"w_gate": torch.zeros(4, 8, 16)}
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tmlp.quantize_weight_tree(p, "int8")
-    per_expert = {"w_up": torch.zeros(4, 8, 16, dtype=torch.int8),
-                  "s_up": torch.ones(4, 1, 1)}
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tmlp._dequant(per_expert, "w_up")
+    """Stacked (E, K, N) expert weights, which raised before MoE was
+    ported, now quantise one expert at a time (the reference vmaps), and
+    a per-expert int8 weight dequantises with its (1, 1) scale."""
+    w = torch.randn(4, 8, 16, generator=torch.Generator().manual_seed(3))
+    q = tmlp.quantize_weight_tree({"w_gate": w}, "int8")
+    for e in range(4):
+        qe, se = tsm.quantize_int8(w[e], block_k=tsm.GROUP_SIZE)
+        assert torch.equal(q["w_gate"][e], qe) and torch.equal(
+            q["s_gate"][e], se)
+    per_expert = {"w_up": torch.full((8, 16), 3, dtype=torch.int8),
+                  "s_up": torch.full((1, 1), 0.5)}
+    assert torch.equal(tmlp._dequant(per_expert, "w_up", torch.float32),
+                       torch.full((8, 16), 1.5))
 
 
 @pytest.mark.parametrize("arch,kw", [
@@ -322,6 +328,14 @@ def test_stacked_expert_weights_raise_naming_moe():
     ("qwen30b-a3b", dict(expert_quant="int8")),
 ])
 def test_moe_quant_options_raise_naming_moe(dbs, arch, kw):
+    """These options raised before MoE was ported; now each session opens
+    and plans the reference's graph (expert_quant is a no-op on a dense
+    model, as there)."""
     cfg = torch_smoke(arch).replace(**kw)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Session.open(cfg, CLI2, 1 << 30, db=dbs[1], device="cpu")
+    sess = Session.open(cfg, CLI2, 1 << 30, db=dbs[1], device="cpu")
+    jcfg = jax_smoke(arch).replace(**kw)
+    jsubs = jax_graph(jcfg, wdtype=2, expert_granular=jcfg.moe is not None)
+    assert [(s.name, s.kind, s.weight_bytes, s.meta.get("quant"))
+            for s in sess.subs] == \
+        [(s.name, s.kind, s.weight_bytes, s.meta.get("quant"))
+         for s in jsubs]

@@ -306,9 +306,77 @@ def test_vision_encode_ragged_n_flash_equals_plain(vision_params):
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (1, 130, 64)).astype(np.float32))
     vc = tvlm.VisionConfig(**SMALL)
-    a = tvlm.vision_encode(tp, vc, x, flash=True, q_chunk=32, device="cpu")
+    a = tvlm.vision_encode(tp, vc, x.clone(), flash=True, q_chunk=32,
+                           device="cpu")
     b = tvlm.vision_encode(tp, vc, x, flash=False, device="cpu")
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flash", [True, False])
+def test_vision_encode_row_chunks_match_reference(vision_params, dtype,
+                                                  flash):
+    """N = 100 with q_chunk = 32: the port runs its projections and (flash)
+    queries in row chunks of 32, 32, 32 and 4 and its FFNs in four chunks
+    of 25 rows, the reference its
+    Q-chunk of 25 (the largest divisor of 100 up to 32); the encodes agree
+    within the tolerance of ``test_vision_encode_matches_reference``."""
+    jp, tp = vision_params[dtype]
+    jd, _ = DT[dtype]
+    x = jnp.asarray(np.random.default_rng(3).standard_normal((2, 100, 64)),
+                    jd)
+    ref = jvlm.vision_encode(jp, jvlm.VisionConfig(**SMALL), x, flash=flash,
+                             q_chunk=32)
+    out = tvlm.vision_encode(tp, tvlm.VisionConfig(**SMALL),
+                             tensor_from_numpy(np.asarray(x)), flash=flash,
+                             q_chunk=32, device="cpu")
+    assert tuple(out.shape) == (2, 100, 64)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-4, atol=2e-4)
+    else:
+        err = np.max(np.abs(_np(out) - _np(ref)))
+        assert err <= 2e-2 * np.max(np.abs(_np(ref))), err
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_vision_encode_writes_its_result_into_the_patches(vision_params,
+                                                          flash):
+    """The patches are the residual stream: the encode returns them,
+    overwritten with its result, the bits an encode of a clone gives."""
+    _, tp = vision_params["bfloat16"]
+    vc = tvlm.VisionConfig(**SMALL)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 70, 64)).astype(np.float32)).to(torch.bfloat16)
+    want = tvlm.vision_encode(tp, vc, x.clone(), flash=flash, q_chunk=32,
+                              device="cpu")
+    assert not torch.equal(want, x)
+    got = tvlm.vision_encode(tp, vc, x, flash=flash, q_chunk=32,
+                             device="cpu")
+    assert got is x and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, rows", [(1, 1), (4, 1), (5, 2), (100, 25),
+                                     (4641, 1161), (18564, 4641)])
+def test_ffn_rows_fit_the_room_of_k_and_v(n, rows):
+    """A chunk of FFN rows holds at most 8 d elements a row (hidden and
+    gelu), no more than the 2 N x d of k and v: N / 4 rows, rounded up
+    (and so at most four chunks)."""
+    assert tvlm.ffn_rows(n) == rows
+    assert 8 * rows <= 2 * n + 6
+    assert -(-n // rows) <= 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_plain_is_attend_ref(dtype):
+    """The encoder's plain attention, scale and softmax written in place,
+    computes ``attend_ref``'s bidirectional attention."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn((2, 37, 4, 16), generator=g).to(DT[dtype][1])
+               for _ in range(3))
+    a = tvlm.attend_plain(q, k, v)
+    b = tattn.attend_ref(q, k, v, causal=False)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol)
 
 
 def test_vision_encode_runs_on_the_card_unless_asked(vision_params,
