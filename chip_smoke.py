@@ -116,13 +116,41 @@ Phases (each raises on failure; the last line is printed only if all pass):
    (``expert_quant``, K2 as one group) and int4 (``weight_quant``, K3)
    experts, each granular and monolithic at 0.5x and granular at 0.1x
    with identical tokens, 3 K2 or K3 launches per expert call, no
-   ``_dequant``, and the same plain teacher-forced check.
+   ``_dequant``, and the same plain teacher-forced check. One more bf16
+   run serves granular at 0.5x with paged KV: tokens equal the stacked
+   runs', ledger (pages as "kv") and peak gated;
+12. paged KV (phase 3's model, weights and wave, at 0.1x,
+   ``kv_layout="paged"``): with the planner's pool, and with 64 pages
+   (under the 480 live blocks, over one layer's 20) pipelined and sync,
+   tokens equal phase 3's stacked tokens; on the 64-page runs evictions
+   and restores both happen (printed per decode step); a staggered wave
+   of 6 requests at ``max_batch=4`` and a wave of 4 prompts sharing a
+   48-token prefix, each against stacked serving of the same requests,
+   the prefix counters equal to what the prompts imply; every run's
+   ledger (streamed == static plan + demanded pages, pages as "kv") and
+   peak (the page pools in place of the stacked cache) gated; K1's
+   launches, all on the tensor cores; ``Session.estimates(64,
+   prefix_hit_frac=0.75)`` printed;
+13. speculative decoding: qwen3-14b at its published widths (d=5120,
+   40/8 heads, hd=128, qk-norm, f=17408, vocab 151936, untied) and 10
+   of its 40 layers, seeded bf16 weights drawn on the card; the
+   executor's ``_run_verify`` over 4 positions ``torch.equal`` to 4
+   ``_run_decode`` calls (logits and caches), stacked and paged; served
+   with qwen2-0.5b (phase 3's weights) as its draft at k = 3 at 0.5x,
+   stacked and paged, and with itself as its draft at 1.8x: tokens equal
+   plain greedy serving at the same budget, the draft streams nothing,
+   every verify pass's ledger exact, drafted == accepted + rolled back,
+   peak within the bound with the draft's pins, cache and head counted,
+   self-speculation's acceptance above 0.6; tok/s and TTFT of each
+   speculative run and its plain twin printed; K1's launches, all on the
+   tensor cores.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -330,11 +358,13 @@ def kernel_phase():
         max_err = max(max_err, check_close(
             f"K1 float32 ({M},2048)@(2048,128)", streamed_matmul(x, w),
             kref.streamed_matmul_ref(x, w), "float32"))
-    # the main path's shapes (qwen2-0.5b's FFN, then qwen30b-a3b's
-    # experts), bf16, timed
+    # the main path's shapes (qwen2-0.5b's FFN, qwen30b-a3b's experts,
+    # then qwen3-14b's FFN at decode, M=4, and in the verify window of
+    # 4 x (k+1), M=16), bf16, timed
     for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
                        (4864, 896, (1, 4, 64, 256)),
-                       (2048, 768, (4, 64)), (768, 2048, (4, 64))):
+                       (2048, 768, (4, 64)), (768, 2048, (4, 64)),
+                       (5120, 17408, (4, 16)), (17408, 5120, (4, 16))):
         n_copies = max(2, -(-2 * L2_BYTES // (K * N * 2)))
         ws = [(torch.randn((K, N), generator=gen, device=dev) / K ** 0.5)
               .to(torch.bfloat16) for _ in range(n_copies)]
@@ -364,7 +394,7 @@ def kernel_phase():
     # row independence: kernel(x)[rows] == kernel(x[rows]) bit for bit,
     # across both tile configurations (M <= 16 and M > 16)
     for (K, N) in ((896, 4864), (4864, 896), (112, 56), (2048, 768),
-                   (768, 2048), (2048, 128)):
+                   (768, 2048), (2048, 128), (5120, 17408), (17408, 5120)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((256, K), generator=gen, device=dev).to(dtype)
             w = (torch.randn((K, N), generator=gen, device=dev)
@@ -399,7 +429,8 @@ def kernel_phase():
         "600 rows, across M = 16 and the 256-row slicing, bf16 and f32)")
     # split-K on two streams at once: each stream has its own tile
     # counters, so the calls may overlap and still give the same bits
-    for (M, K, N) in ((4, 4864, 896), (64, 4864, 896), (300, 896, 4864)):
+    for (M, K, N) in ((4, 4864, 896), (64, 4864, 896), (300, 896, 4864),
+                      (16, 17408, 5120)):
         x = torch.randn((M, K), generator=gen, device=dev) \
             .to(torch.bfloat16)
         w = (torch.randn((K, N), generator=gen, device=dev) / K ** 0.5) \
@@ -1024,12 +1055,27 @@ def expected_streamed_by_dtype(ex):
     return out
 
 
+def kv_device_bytes(sess):
+    """The KV cache's device bytes: the stacked (L, B, KV, S, hd) pair, or
+    a paged cache's two page pools (the null page included)."""
+    from repro_torch.core.kvpaged import PagedKVCache
+    cfg = sess.cfg
+    kv = sess._batcher.kv if sess._batcher is not None else None
+    if isinstance(kv, PagedKVCache):
+        return 2 * kv.n_pages * kv.page_bytes
+    return 2 * cfg.n_layers * MAX_BATCH * cfg.n_kv_heads * MAX_SEQ \
+        * cfg.resolved_head_dim * 2
+
+
 def memory_bound(sess):
     """Peak device bytes the plan allows, with everything the executor
     keeps outside the planned budget counted in. For MoE: the at-use term
     covers the router, expert and whole-MoE sub-layers, and the (E, C, d)
     dispatch and output buffers are counted at the most rows C the run
-    held at once (``ExecStats.moe_rows_peak``)."""
+    held at once (``ExecStats.moe_rows_peak``). A paged session counts its
+    page pools in place of the stacked cache; a speculative one adds the
+    draft's pinned weights (its schedule's, all of them), its stacked
+    cache and its embedding, norm and head."""
     from repro_torch.core.prefetch import groups_nbytes
     from repro_torch.models.common import tree_nbytes
     ex = sess.executor
@@ -1048,22 +1094,37 @@ def memory_bound(sess):
     at_use = max(groups_nbytes(ex._subtree(s)) for s in sess.subs
                  if s.kind in ("attn", "ffn", "moe", "moe_router",
                                "moe_expert"))
-    kv = 2 * cfg.n_layers * MAX_BATCH * cfg.n_kv_heads * MAX_SEQ \
-        * cfg.resolved_head_dim * 2
     resident = tree_nbytes({k: ex.host[k] for k in ex.host})
     parts = {"pinned": pinned, "scratch": scratch, "at_use_one_sublayer":
-             at_use, "kv": kv, "embed_norm_head": resident,
+             at_use, "kv": kv_device_bytes(sess), "embed_norm_head": resident,
              "activations": ACT_ALLOWANCE}
     if cfg.moe is not None:
         parts["moe_dispatch_and_output"] = \
             2 * cfg.moe.n_experts * ex.stats.moe_rows_peak * cfg.d_model * 2
+    if sess._spec_decoder is not None:
+        dex = sess._spec_decoder.ex
+        dcfg = sess.draft_cfg
+        dpins = sess.draft_schedule.pinned_placements()
+        if set(dex._pinned) != {pl.sub.name for pl in dpins}:
+            raise AssertionError("the draft pins other sub-layers than its "
+                                 "schedule")
+        parts["draft_pinned"] = int(sum(pl.sub.weight_bytes for pl in dpins))
+        parts["draft_kv"] = 2 * dcfg.n_layers * MAX_BATCH \
+            * dcfg.n_kv_heads * MAX_SEQ * dcfg.resolved_head_dim * 2
+        parts["draft_embed_norm_head"] = tree_nbytes(
+            {k: dex.host[k] for k in dex.host})
     return sum(parts.values()), parts
 
 
 def serve_once(cfg, params, db, system, budget, *, overlap=True,
                fused=True, prefill_mode=None, rebudget_to=None,
                rebudget_after=2, n_req=N_REQ, new_tokens=NEW_TOKENS,
-               expert_granular=None):
+               requests=None, **open_kw):
+    """One Session.open -> serve run at ``budget``. ``requests``: a
+    function making the wave (fresh Request objects), else ``n_req``
+    random prompts of PROMPT_LEN tokens; ``open_kw`` go to Session.open
+    (expert_granular, kv_layout, kv_pool_pages, draft_cfg, draft_params,
+    spec_k)."""
     import torch
     from repro_torch import Session
     from repro_torch.core import InferenceSetting, random_requests
@@ -1074,12 +1135,13 @@ def serve_once(cfg, params, db, system, budget, *, overlap=True,
                                                  context=MAX_SEQ),
                         db=db, params=params, max_seq=MAX_SEQ,
                         overlap=overlap, prefill_mode=prefill_mode,
-                        expert_granular=expert_granular)
+                        **open_kw)
     # build the executor (weights placed on the card) before the requests
     # arrive, so TTFT counts serving and not set-up
     batcher = sess.batcher(max_batch=MAX_BATCH, fused=fused)
     torch.cuda.synchronize()
-    reqs = random_requests(cfg.vocab, n_req, PROMPT_LEN, new_tokens, seed=0)
+    reqs = requests() if requests is not None else \
+        random_requests(cfg.vocab, n_req, PROMPT_LEN, new_tokens, seed=0)
     t0 = time.perf_counter()
     diff = None
     steps = []          # (seconds, tokens emitted, prefills in the step)
@@ -1327,9 +1389,13 @@ def main_path():
         agree = quant[mode].pop("agreement")
         log(f"{mode} greedy tokens equal to the bf16 run's: {agree:.3f} of "
             "positions (information only: random weights quantise badly)")
+
+    # ---- phase 12: paged KV at 0.1x, against the stacked tokens
+    paged = paged_path(cfg, params, db, system, total, runs[0.1]["tokens"])
     return {"rows": rows, "launches": main_launches, "variants": variants,
             "link_gbps": link,
-            "profile": prof, "quant": quant}
+            "profile": prof, "quant": quant, "paged": paged,
+            "model": (cfg, params)}
 
 
 KERNEL_OF = {"int8": "K2", "int4": "K3"}
@@ -1382,6 +1448,33 @@ class _CallCount:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
+        return False
+
+
+class _LaunchesIn:
+    """Counts the K1 launches made inside ``cls``'s methods ``names``
+    while installed (a speculative run's draft)."""
+
+    def __init__(self, cls, *names):
+        self.cls = cls
+        self.real = {n: getattr(cls, n) for n in names}
+        self.launches = 0
+
+    def __enter__(self):
+        k1 = _counters()["K1"]
+        for name, real in self.real.items():
+            def counted(*a, _real=real, **kw):
+                before = k1.launches
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    self.launches += k1.launches - before
+            setattr(self.cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.cls, name, real)
         return False
 
 
@@ -1587,6 +1680,182 @@ def profile_phase(cfg, params, db, system, budget, steps=4, tag="0.1x"):
     for row in out["top_host"]:
         log(f"  host {row['ms_per_step']:.4f} ms/step  {row['op']}")
     return out
+
+
+# ------------------------------------------------------------ phase 12
+# the forced pool: 64 usable pages against the main path's 480 live blocks
+# (24 layers x 4 slots x 5 blocks of 16 tokens) and one layer's 20
+FORCED_POOL = 64
+PREFIX_LEN, SUFFIX_LEN = 48, 16      # 3 full shared blocks, then 1 own
+
+
+def staggered_wave(vocab, n=6):
+    """Six requests of 40 to 80 prompt tokens and 8 to 28 new ones: with
+    ``max_batch=4`` the last two are admitted as earlier ones retire, so
+    slots sit at different positions and a page's blocks turn over."""
+    import numpy as np
+    from repro_torch.core.serving import Request
+    rng = np.random.RandomState(1)
+    return [Request(rid=i, prompt=rng.randint(0, vocab, size=40 + 8 * i)
+                    .astype(np.int32), max_new_tokens=8 + 4 * i)
+            for i in range(n)]
+
+
+def prefix_wave(vocab, n=N_REQ):
+    """``n`` prompts sharing a PREFIX_LEN-token system prompt, each with a
+    SUFFIX_LEN-token question of its own."""
+    import numpy as np
+    from repro_torch.core.serving import Request
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, vocab, size=PREFIX_LEN).astype(np.int32)
+    return [Request(rid=i, prompt=np.concatenate(
+        [shared, rng.randint(0, vocab, size=SUFFIX_LEN).astype(np.int32)]),
+        max_new_tokens=NEW_TOKENS) for i in range(n)]
+
+
+def expected_prefix_counts(prompts, page_size):
+    """What ``prefix_attach`` counts for prompts admitted in this order,
+    each registering its full blocks after its prefill: a query per
+    prompt; a hit per prompt whose leading full blocks (its chained block
+    keys) were registered before, matched up to one token short of the
+    prompt; the matched blocks summed."""
+    seen = set()
+    hits = blocks = 0
+    for p in prompts:
+        keys, prev = [], ("kv-prefix",)
+        for j in range(len(p) // page_size):
+            prev = (prev, tuple(int(t) for t in
+                                p[j * page_size:(j + 1) * page_size]))
+            keys.append(prev)
+        matched = 0
+        for key in keys:
+            if key not in seen or (matched + 1) * page_size >= len(p):
+                break
+            matched += 1
+        hits += matched > 0
+        blocks += matched
+        seen.update(keys)
+    return {"prefix_queries": len(prompts), "prefix_hits": hits,
+            "prefix_hit_blocks": blocks}
+
+
+def paged_checks(tag, run):
+    """One paged run's gates: the ledger (streamed == static plan +
+    demanded experts + demanded pages, per dtype, pages as "kv"), peak
+    memory within the bound (the pools in place of the stacked cache).
+    Returns the summary row with the page counters."""
+    row = summarise(tag, run)
+    sess = run["sess"]
+    ex = sess.executor
+    st = sess.stats()["serving"]["paged_kv"]
+    by, lim, parts = ledger_and_bound(tag, run)
+    if st["demanded_page_bytes"] != ex.stats.demanded_page_bytes or \
+            st["page_faults"] != ex.stats.page_faults:
+        raise AssertionError(f"{tag}: cache and executor page counters "
+                             f"differ: {st}")
+    steps = max(ex.stats.decode_passes, 1)
+    log(f"  pages: pool {st['n_pages'] - 1} of {st['page_size']} tokens "
+        f"({st['pool_bytes']} B), evictions {st['evictions']} "
+        f"({st['evictions'] / steps:.2f} per decode step), faults "
+        f"{st['page_faults']} ({st['page_faults'] / steps:.2f} per decode "
+        f"step, {st['demanded_page_bytes']} B demanded), prefix hits "
+        f"{st['prefix_hits']} of {st['prefix_queries']} "
+        f"({st['prefix_hit_blocks']} blocks); ledger: streamed "
+        f"{ex.stats.streamed_bytes} B == static plan + demanded {by}")
+    row.update({k: st[k] for k in ("n_pages", "pool_bytes", "evictions",
+                                   "page_faults", "demanded_page_bytes",
+                                   "prefix_queries", "prefix_hits",
+                                   "prefix_hit_blocks", "cow_copies")})
+    row.update({"decode_passes": ex.stats.decode_passes,
+                "evictions_per_decode_step": st["evictions"] / steps,
+                "faults_per_decode_step": st["page_faults"] / steps,
+                "streamed_bytes_by_dtype": by,
+                "bound_bytes": lim, "bound_parts": parts})
+    return row
+
+
+def paged_path(cfg, params, db, system, total, stacked):
+    """Phase 12: qwen2-0.5b served paged at 0.1x, the main path's wave
+    with the planner's pool and with FORCED_POOL pages (pipelined and
+    sync), a staggered wave, and a shared-prefix wave; each against
+    stacked serving of the same requests."""
+    budget = int(total * 0.1)
+    rows = {}
+    launches = {"K1": 0, "mma": 0, "fma": 0}
+
+    def serve(tag, stacked_tokens=None, **kw):
+        # the counts cover this paged run alone: the stacked twins it is
+        # held against run outside the window
+        reset_launches()
+        run = serve_once(cfg, params, db, system, budget,
+                         kv_layout="paged", **kw)
+        counts, variants = read_launches(), read_variants()
+        if counts["K1"] <= 0 or variants["K1"] != {"mma": counts["K1"],
+                                                   "fma": 0} \
+                or (counts["K2"], counts["K3"], counts["K4"]) != (0, 0, 0):
+            raise AssertionError(f"paged {tag}: launches {counts} by "
+                                 f"kernel {variants}")
+        launches["K1"] += counts["K1"]
+        for key, n in variants["K1"].items():
+            launches[key] += n
+        row = paged_checks(f"paged {tag} 0.1x", run)
+        row["k1_launches"] = counts["K1"]
+        if stacked_tokens is not None and run["tokens"] != stacked_tokens:
+            raise AssertionError(f"paged {tag}: tokens differ from stacked "
+                                 "serving")
+        rows[tag] = row
+        return run, row
+
+    run, _ = serve("planner pool", stacked)
+    run["sess"].close()
+    forced_tag = f"pool {FORCED_POOL}"
+    run, forced = serve(forced_tag, stacked, kv_pool_pages=FORCED_POOL)
+    run["sess"].close()
+    if forced["evictions"] <= 0 or forced["page_faults"] <= 0:
+        raise AssertionError(f"the forced pool of {FORCED_POOL} pages never "
+                             f"evicted or restored: {forced}")
+    log(f"paged at 0.1x, planner's pool ({rows['planner pool']['n_pages'] - 1}"
+        f" pages) and {FORCED_POOL} pages: tokens identical to stacked")
+    run, _ = serve(f"{forced_tag} sync", stacked, kv_pool_pages=FORCED_POOL,
+                   overlap=False)
+    run["sess"].close()
+    log(f"paged overlap == sync at 0.1x with {FORCED_POOL} pages: tokens "
+        "identical")
+
+    wave = functools.partial(staggered_wave, cfg.vocab)
+    srun = serve_once(cfg, params, db, system, budget, requests=wave)
+    srun["sess"].close()
+    run, _ = serve(f"staggered {forced_tag}", srun["tokens"],
+                   kv_pool_pages=FORCED_POOL, requests=wave)
+    run["sess"].close()
+    log(f"staggered wave of 6 at max_batch {MAX_BATCH}, {FORCED_POOL} pages: "
+        "tokens identical to stacked")
+
+    pwave = functools.partial(prefix_wave, cfg.vocab)
+    prun = serve_once(cfg, params, db, system, budget, requests=pwave)
+    prun["sess"].close()
+    run, prow = serve("prefix", prun["tokens"], requests=pwave)
+    want = expected_prefix_counts([r.prompt for r in run["reqs"]],
+                                  run["sess"].executor.kv_page_size)
+    got = {k: prow[k] for k in want}
+    if got != want or prow["cow_copies"]:
+        raise AssertionError(f"prefix counters {got} (cow "
+                             f"{prow['cow_copies']}) != {want}")
+    prefix_tokens = [p["prefix_tokens"]
+                     for p in run["sess"].executor.stats.prefill_stats]
+    log(f"prefix wave ({N_REQ} prompts sharing {PREFIX_LEN} tokens): tokens "
+        f"identical to stacked; counters {got} == what the prompts imply; "
+        f"prefix tokens per admission {prefix_tokens}")
+    est = run["sess"].estimates(PROMPT_LEN, prefix_hit_frac=0.75)
+    log(f"Session.estimates({PROMPT_LEN}, prefix_hit_frac=0.75): {est}")
+    run["sess"].close()
+    variants = {"mma": launches["mma"], "fma": launches["fma"]}
+    log(f"K1 launches on the paged path: {launches['K1']}, in the paged "
+        f"runs alone, each > 0, all mma (by kernel {variants}; per run "
+        f"{ {t: r['k1_launches'] for t, r in rows.items()} })")
+    return {"rows": rows, "launches": launches["K1"],
+            "variants": variants, "estimates": est,
+            "prefix_tokens": prefix_tokens}
 
 
 def k4_profile(tag, fn):
@@ -2075,12 +2344,11 @@ def moe_quantised(params, kw):
                                  "moe": {"router": moe["router"], **out}}}
 
 
-def moe_run_checks(tag, run, cfg):
-    """One MoE run's gates: the ledger (streamed == static plan +
-    demanded expert bytes, per dtype), peak memory within the bound, and
-    each decode step's demanded experts per layer <= active tokens x
-    top_k. Returns the summary row."""
-    row = summarise(tag, run)
+def ledger_and_bound(tag, run):
+    """A run's ledger, per dtype: streamed == static plan + demanded
+    expert bytes (under the experts' format) + demanded page bytes (as
+    "kv"); and its peak device memory within ``memory_bound``. Returns
+    (streamed bytes by dtype, bound, its parts)."""
     sess = run["sess"]
     ex = sess.executor
     by = dict(ex.stats.streamed_bytes_by_dtype)
@@ -2089,13 +2357,31 @@ def moe_run_checks(tag, run, cfg):
         q = next(s.meta["quant"] for s in sess.subs
                  if s.kind == "moe_expert")
         want[q] = want.get(q, 0) + ex.stats.demanded_expert_bytes
+    if ex.stats.demanded_page_bytes:
+        want["kv"] = ex.stats.demanded_page_bytes
     if by != want or sum(by.values()) != ex.stats.streamed_bytes:
         raise AssertionError(f"{tag}: streamed by dtype {by} != static plan "
-                             f"+ demanded experts {want}")
+                             f"+ demanded experts + demanded pages {want}")
     lim, parts = memory_bound(sess)
     log(f"  peak device memory {run['peak']} B <= bound {lim} B {parts}")
     if run["peak"] > lim:
         raise AssertionError(f"{tag}: peak {run['peak']} > {lim}")
+    return by, lim, parts
+
+
+def moe_run_checks(tag, run, cfg):
+    """One MoE run's gates: ``ledger_and_bound`` (and a paged run's
+    ``paged_checks``), and each decode step's demanded experts per layer
+    <= active tokens x top_k. Returns the summary row."""
+    sess = run["sess"]
+    ex = sess.executor
+    if sess.kv_layout == "paged":
+        row = paged_checks(tag, run)
+        by, lim, parts = (row["streamed_bytes_by_dtype"], row["bound_bytes"],
+                          row["bound_parts"])
+    else:
+        row = summarise(tag, run)
+        by, lim, parts = ledger_and_bound(tag, run)
     worst = 0
     for ps in ex.stats.pass_expert_stats:
         cap = ps["n_active"] * cfg.moe.top_k
@@ -2166,7 +2452,8 @@ def moe_path(link):
     runs = [("granular", f, {}) for f in MOE_BUDGETS] \
         + [("monolithic", f, dict(expert_granular=False))
            for f in MOE_BUDGETS[:2]] \
-        + [("granular-sync", 0.1, dict(overlap=False))]
+        + [("granular-sync", 0.1, dict(overlap=False)),
+           ("granular-paged", 0.5, dict(kv_layout="paged"))]
     reset_launches()
     with _CallCount(mlp, "_route") as route, \
             _CallCount(mlp, "expert_ffn") as experts:
@@ -2190,7 +2477,7 @@ def moe_path(link):
             raise AssertionError(f"moe {key}: tokens differ from granular "
                                  "2.0x")
     log("moe tokens identical across granular 2.0x, 0.5x, 0.1x, monolithic "
-        "2.0x, 0.5x and sync 0.1x: True")
+        "2.0x, 0.5x, sync 0.1x and paged granular 0.5x: True")
     sync, ovl = rows[("granular-sync", 0.1)], rows[("granular", 0.1)]
     if (sync["streamed_bytes"], sync["streamed_bytes_by_dtype"]) != \
             (ovl["streamed_bytes"], ovl["streamed_bytes_by_dtype"]):
@@ -2265,6 +2552,250 @@ def moe_path(link):
     del params
     free_cuda()
     return out
+
+
+# ------------------------------------------------------------ phase 13
+SPEC_ARCH = "qwen3-14b"
+SPEC_LAYERS = 10         # of 40: every layer has the same shapes
+SPEC_K = 3
+SPEC_WIDTH = SPEC_K + 1
+
+
+def _copy_tree(dst, src, i):
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_tree(dst[k], v, i)
+        else:
+            dst[k][i].copy_(v)
+
+
+def dense_host_params(cfg):
+    """Seeded bf16 weights of a dense decoder in the reference's stacked
+    layout in pinned host memory, each layer drawn on the card by the
+    port's own init and copied back, one layer at a time."""
+    import torch
+    from repro_torch.models.common import dense_init, tree_map
+    from repro_torch.models.transformer import init_layer_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    bf = torch.bfloat16
+    layers = None
+    for i in range(L):
+        lp = init_layer_params(gen, cfg, bf)
+        if layers is None:
+            layers = tree_map(
+                lambda t: _pinned((L,) + tuple(t.shape), t.dtype), lp)
+        _copy_tree(layers, lp, i)
+        del lp
+    embed = _pinned((V, d), bf)
+    embed.copy_(dense_init(gen, (V, d), 1, bf))
+    out = {"embed": embed, "layers": layers,
+           "final_norm": _pinned((d,), bf, 1.0)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = _pinned((d, V), bf)
+        out["unembed"].copy_(dense_init(gen, (d, V), 0, bf))
+    torch.cuda.synchronize()
+    return out
+
+
+def verify_check(cfg, params, schedule, layout):
+    """``_run_verify`` over a window of SPEC_WIDTH against as many
+    ``_run_decode`` calls, on two caches prefilled alike: the logits
+    ``torch.equal`` column by column, and the caches equal after."""
+    import numpy as np
+    import torch
+    from repro_torch.core.executor import PipelinedExecutor
+    ex = PipelinedExecutor(cfg, params, schedule, max_seq=MAX_SEQ,
+                           kv_layout=layout)
+    rng = np.random.RandomState(5)
+    lens = [PROMPT_LEN - 3 * i for i in range(MAX_BATCH)]
+    prompts = [rng.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in lens]
+    window = torch.as_tensor(rng.randint(0, cfg.vocab, size=(
+        MAX_BATCH, SPEC_WIDTH)).astype(np.int32), device="cuda")
+    pos = torch.as_tensor(np.asarray(lens, np.int32), device="cuda")
+    act = torch.ones((MAX_BATCH,), dtype=torch.bool, device="cuda")
+    caches = []
+    for _ in range(2):
+        kv = ex.init_kv(MAX_BATCH)
+        for s, p in enumerate(prompts):
+            ex.prefill(torch.as_tensor(p)[None], kv=kv, slot=s)
+        caches.append(kv)
+    seq = []
+    for j in range(SPEC_WIDTH):
+        lg, _ = ex._run_decode(window[:, j:j + 1], caches[0], pos + j, act,
+                               n_active=MAX_BATCH)
+        seq.append(lg[:, -1])
+    ver, _ = ex._run_verify(window, caches[1], pos, act, n_active=MAX_BATCH)
+    torch.cuda.synchronize()
+    for j in range(SPEC_WIDTH):
+        if not torch.equal(ver[:, j], seq[j]):
+            diff = (ver[:, j].float() - seq[j].float()).abs().max().item()
+            raise AssertionError(f"{layout}: verify column {j} != decode "
+                                 f"step {j} (max |diff| {diff})")
+    if layout == "stacked":
+        same = all(torch.equal(caches[0][k], caches[1][k]) for k in "kv")
+    else:
+        a, b = caches
+        same = bool((a.bids == b.bids).all()) and all(
+            torch.equal(a.k_pool[a.layer_table(i)], b.k_pool[b.layer_table(i)])
+            and torch.equal(a.v_pool[a.layer_table(i)],
+                            b.v_pool[b.layer_table(i)])
+            for i in range(cfg.n_layers))
+    if not same:
+        raise AssertionError(f"{layout}: the verify pass left another cache "
+                             "than the decode steps")
+    entry = ex.stats.verify_pass_stats[-1]
+    log(f"verify == {SPEC_WIDTH} sequential decode steps at full width, "
+        f"{layout}: logits torch.equal, caches equal; the pass streamed "
+        f"{entry['streamed_bytes']} B once for {MAX_BATCH * SPEC_WIDTH} rows "
+        f"(the decode steps {SPEC_WIDTH} x "
+        f"{ex.stats.pass_streamed_bytes[-1]} B)")
+    del ex, caches
+    free_cuda()
+    return entry
+
+
+def spec_checks(tag, run, plain_tokens):
+    """One speculative run's gates: tokens equal to plain greedy decode,
+    the draft streamed nothing, every verify pass's ledger exact (streamed
+    == static plan + demanded experts + demanded pages),
+    drafted == accepted + rolled back, peak within the bound with the
+    draft counted. Returns the summary row."""
+    row = summarise(tag, run)
+    sess = run["sess"]
+    ex = sess.executor
+    srv = sess.stats()["serving"]
+    if not sess.spec_active or srv["spec_verify_passes"] <= 0:
+        raise AssertionError(f"{tag}: speculation did not run: {srv}")
+    if run["tokens"] != plain_tokens:
+        raise AssertionError(f"{tag}: speculative tokens differ from plain "
+                             "greedy decode")
+    if srv["draft"]["streamed_bytes"] != 0 or \
+            sess.spec_decoder(MAX_BATCH).ex.prefetch is not None:
+        raise AssertionError(f"{tag}: the draft streamed: {srv['draft']}")
+    for e in ex.stats.verify_pass_stats:
+        if e["streamed_bytes"] != e["static_plan_bytes"] \
+                + e["demanded_expert_bytes"] + e["demanded_page_bytes"]:
+            raise AssertionError(f"{tag}: verify pass ledger {e}")
+    if srv["spec_drafted"] != srv["spec_accepted"] \
+            + srv["spec_rolled_back_tokens"]:
+        raise AssertionError(f"{tag}: drafted != accepted + rolled back: "
+                             f"{srv}")
+    _, lim, parts = ledger_and_bound(tag, run)
+    log(f"  spec: k={srv['spec_k']}, {srv['spec_verify_passes']} verify "
+        f"passes, drafted {srv['spec_drafted']}, accepted "
+        f"{srv['spec_accepted']} (rate {srv['accept_rate']:.4f}), rolled "
+        f"back {srv['spec_rolled_back_tokens']}; draft "
+        f"{srv['draft']}; every verify ledger exact")
+    row.update({k: srv[k] for k in ("spec_k", "spec_verify_passes",
+                                    "spec_drafted", "spec_accepted",
+                                    "accept_rate",
+                                    "spec_rolled_back_tokens")})
+    row.update({"draft_carve_bytes": sess.draft_carve_bytes,
+                "bound_bytes": lim, "bound_parts": parts})
+    return row
+
+
+def spec_path(link, draft_cfg, draft_params):
+    """Phase 13: qwen3-14b at its published widths, SPEC_LAYERS of 40
+    layers, with qwen2-0.5b (full size, seeded random weights) as its
+    draft at k = SPEC_K, and the target as its own draft."""
+    import torch
+    from repro_torch import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core import (SYSTEMS, InferenceSetting, build_graph,
+                                  run_install, specdec, total_weight_bytes)
+    cfg = get_config(SPEC_ARCH).replace(n_layers=SPEC_LAYERS)
+    system = SYSTEMS["h100"].with_(link_gbps=link)
+    db = run_install(system)
+    t0 = time.perf_counter()
+    params = dense_host_params(cfg)
+    total = total_weight_bytes(build_graph(cfg))
+    log(f"{SPEC_ARCH} at its published widths (d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.resolved_head_dim}, "
+        f"f={cfg.d_ff}, vocab={cfg.vocab}), {cfg.n_layers} of 40 layers, "
+        f"{total} B of graph: weights drawn on the card and pinned in "
+        f"{time.perf_counter() - t0:.1f} s; draft {draft_cfg.name} at full "
+        f"size, k={SPEC_K}")
+    warm = serve_once(cfg, params, db, system, int(total * 0.5), n_req=1,
+                      new_tokens=2)
+    warm["sess"].close()
+    del warm
+    schedule = Session.open(cfg, system=system,
+                            budget_bytes=int(total * 0.5),
+                            setting=InferenceSetting(batch=MAX_BATCH,
+                                                     context=MAX_SEQ),
+                            db=db, max_seq=MAX_SEQ).schedule
+    verify = {layout: verify_check(cfg, params, schedule, layout)
+              for layout in ("stacked", "paged")}
+    draft = dict(draft_cfg=draft_cfg, draft_params=draft_params,
+                 spec_k=SPEC_K)
+    rows, plain = {}, {}
+    launches = {"K1": 0, "mma": 0, "fma": 0, "draft": 0}
+    for frac, layout, kw in ((0.5, "stacked", draft),
+                             (0.5, "paged", draft),
+                             (1.8, "stacked",
+                              dict(draft_cfg=cfg, draft_params=params,
+                                   spec_k=SPEC_K))):
+        tag = f"{frac}x {layout}" + (" self" if kw["draft_cfg"] is cfg
+                                     else "")
+        run = serve_once(cfg, params, db, system, int(total * frac),
+                         kv_layout=layout)
+        rows[f"plain {tag}"] = summarise(f"{SPEC_ARCH} plain {tag}", run)
+        run["sess"].close()
+        plain.setdefault("tokens", run["tokens"])
+        if run["tokens"] != plain["tokens"]:
+            raise AssertionError(f"plain {tag}: tokens differ from plain "
+                                 "0.5x stacked")
+        # the counts cover this speculative run alone (the plain twin and
+        # the verify checks run outside the window); the draft's own
+        # launches are counted apart
+        reset_launches()
+        with _LaunchesIn(specdec.SpecDecoder, "prefill_slot",
+                         "draft") as in_draft:
+            run = serve_once(cfg, params, db, system, int(total * frac),
+                             kv_layout=layout, **kw)
+        counts, variants = read_launches(), read_variants()
+        target = counts["K1"] - in_draft.launches
+        if target <= 0 or in_draft.launches <= 0 \
+                or variants["K1"] != {"mma": counts["K1"], "fma": 0} \
+                or (counts["K2"], counts["K3"], counts["K4"]) != (0, 0, 0):
+            raise AssertionError(f"spec {tag}: launches {counts} by kernel "
+                                 f"{variants}, {in_draft.launches} of K1 "
+                                 "in the draft")
+        launches["K1"] += target
+        launches["draft"] += in_draft.launches
+        for key, n in variants["K1"].items():
+            launches[key] += n
+        rows[f"spec {tag}"] = spec_checks(f"{SPEC_ARCH} spec {tag}", run,
+                                          plain["tokens"])
+        rows[f"spec {tag}"].update({"k1_launches_target": target,
+                                    "k1_launches_draft": in_draft.launches})
+        run["sess"].close()
+        del run
+        free_cuda()
+    self_rate = rows["spec 1.8x stacked self"]["accept_rate"]
+    if self_rate <= 0.6:
+        raise AssertionError(f"self-speculation accepted {self_rate:.4f} "
+                             "of its drafts, not more than 0.6")
+    log(f"speculative tokens == plain greedy at 0.5x stacked and paged and "
+        f"at 1.8x with self-speculation (accept rate {self_rate:.4f} > 0.6)")
+    for tag in ("0.5x stacked", "0.5x paged", "1.8x stacked self"):
+        p, sp = rows[f"plain {tag}"], rows[f"spec {tag}"]
+        log(f"{SPEC_ARCH} {tag}: spec {sp['decode_tps']:.2f} tok/s, TTFT "
+            f"{sp['ttft_s']:.4f} s against plain {p['decode_tps']:.2f} "
+            f"tok/s, TTFT {p['ttft_s']:.4f} s (accept rate "
+            f"{sp['accept_rate']:.4f})")
+    variants = {"mma": launches["mma"], "fma": launches["fma"]}
+    log(f"K1 launches on the spec path: {launches['K1']} by the target and "
+        f"{launches['draft']} by the draft, in the speculative runs alone, "
+        f"each > 0, all mma (by kernel {variants})")
+    del params
+    free_cuda()
+    return {"rows": rows, "verify": verify, "launches": launches["K1"],
+            "draft_launches": launches["draft"], "variants": variants,
+            "layers": cfg.n_layers, "weight_bytes": total}
 
 
 
@@ -2366,6 +2897,9 @@ def main() -> int:
     planning = vlm_planning(main["link_gbps"])
     free_cuda()
     moe = moe_path(main["link_gbps"])
+    free_cuda()
+    draft_cfg, draft_params = main.pop("model")
+    spec = spec_path(main["link_gbps"], draft_cfg, draft_params)
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
                     "link_gbps": main["link_gbps"],
@@ -2374,14 +2908,16 @@ def main() -> int:
                             "planning": planning,
                             "k4_block_q_bit_equal":
                                 fkern["block_q_bit_equal"]},
-                    "moe": moe,
+                    "moe": moe, "paged": main["paged"], "spec": spec,
                     "seconds": time.perf_counter() - t_start}))
     # kernel -> (the MoE run's tag, its results)
     moe_q = {kname: (qtag, moe["quant"][qtag])
              for qtag, _, kname in MOE_QUANT}
     kernels = [
         kernel_entry("streamed_matmul", "streamed_matmul.py:95",
-                     main["launches"] + moe["launches"],
+                     main["launches"] + moe["launches"]
+                     + main["paged"]["launches"] + spec["launches"]
+                     + spec["draft_launches"],
                      kern["max_abs_err"], kern["shapes"],
                      headline(kern["shapes"]),
                      source="streamed_matmul_mma"),
@@ -2404,10 +2940,17 @@ def main() -> int:
                      source="flash_attention_mma")]
     kernels[0].update({"launches_by_path": {
                            "qwen2-0.5b": main["launches"],
-                           MOE_ARCH: moe["launches"]},
+                           MOE_ARCH: moe["launches"],
+                           "qwen2-0.5b paged": main["paged"]["launches"],
+                           f"{SPEC_ARCH} spec": spec["launches"],
+                           f"{SPEC_ARCH} spec, its draft":
+                               spec["draft_launches"]},
                        "launches_by_variant": {
                            "qwen2-0.5b": main["variants"]["K1"],
-                           MOE_ARCH: moe["variants"]},
+                           MOE_ARCH: moe["variants"],
+                           "qwen2-0.5b paged": main["paged"]["variants"],
+                           f"{SPEC_ARCH} spec and its draft":
+                               spec["variants"]},
                        "check_launches_by_variant":
                            kern["variant_launches"]})
     for entry, mode, kname in zip(kernels[1:3], QUANT_MODES, ("K2", "K3")):

@@ -6,12 +6,22 @@ runs them eagerly: there is no counterpart of the reference's ``jax.jit``
 executable cache and so none of its ``trace_counts`` (the port uses neither
 CUDA graphs nor ``torch.compile``).
 
-KV caches are stacked ``(n_layers, B, KV, S, hd)`` tensors. The attention
-steps write this layer's rows in place — where the reference donated the
-stacks to its jitted steps so XLA could update them in place — and return
-only the residual output. ``layer``, ``slot``, ``pos`` and ``valid_len`` are
-host integers; a decode step's per-slot positions and active mask are
-tensors on the device.
+KV caches are stacked ``(n_layers, B, KV, S, hd)`` tensors, or a paged
+cache's page pools ``(P, KV, page_size, hd)`` with a per-layer page table
+(``core/kvpaged.py``). The attention steps write this layer's rows or
+pages in place — where the reference donated the stacks and pools to its
+jitted steps so XLA could update them in place — and return only the
+residual output. ``layer``, ``slot``, ``pos`` and ``valid_len`` are host
+integers; a decode step's per-slot positions and active mask, and a page
+table, are tensors on the device.
+
+A speculative verify pass runs the FFN, MoE and head of a (B, W) window
+whose columns must come out bit-equal to W decode steps of (B, 1). The
+matmuls of the FFN and the experts are K1–K3, whose rows do not depend on
+M; the norms are reductions, whose launch configuration PyTorch picks from
+the output count, so with ``cols=True`` a step takes each column's norm at
+the decode step's own shape (``_norm``). The executor runs the head per
+column.
 
 Every dense FFN and MoE expert matmul goes through the streamed matmul of
 its weight's format (``models.mlp._mm_dispatch``): K1 for bf16/f32
@@ -38,6 +48,23 @@ from repro_torch.models.mlp import _mm_dispatch, activate
 
 def _positions(B, T, pos, device):
     return (pos + torch.arange(T, device=device))[None, :].expand(B, T)
+
+
+def column(x, j):
+    """Column ``j`` of x (B, T, d) as a fresh contiguous (B, 1, d) tensor,
+    exactly as a decode step holds its residual (a reduction's launch
+    configuration, and so its order of sums, can follow the strides and
+    the alignment of its input)."""
+    return x[:, j:j + 1].clone(memory_format=torch.contiguous_format)
+
+
+def _norm(x, scale, eps, cols=False):
+    """``rmsnorm(x)``; with ``cols``, each ``column`` on its own, so a
+    verify window's norms equal the decode steps'."""
+    if not cols or x.shape[1] == 1:
+        return rmsnorm(x, scale, eps)
+    return torch.cat([rmsnorm(column(x, j), scale, eps)
+                      for j in range(x.shape[1])], dim=1)
 
 
 # ------------------------------------------------------------ attn
@@ -98,11 +125,92 @@ def attn_decode_step(cfg, w, x, kstack, vstack, layer: int, pos_vec, active):
     return x + attn_mod.out_project(o.reshape(B, 1, -1), w["attn"]["wo"])
 
 
+def rollback_step(kstack, vstack, zero_from, active):
+    """Zero KV at positions >= ``zero_from[b]`` on active rows, every layer
+    at once, in place: the stacked rejected-suffix rollback of a verify
+    pass. The stacked cache starts at zero and is append-only, so "never
+    written" is "all zeros", and the masked zero-write leaves the cache
+    byte-equal to a run that never verified the rejected drafts. Rows whose
+    suffix was already clean rewrite zeros with zeros."""
+    S = kstack.shape[3]
+    clear = (torch.arange(S, device=kstack.device)[None, :]
+             >= zero_from[:, None]) & active[:, None]
+    mask = clear[None, :, None, :, None]
+    kstack.masked_fill_(mask, 0)
+    vstack.masked_fill_(mask, 0)
+
+
+# ------------------------------------------------------------ paged kv
+# The paged cache stores KV in physical pages (P, KV, page_size, hd); a
+# per-layer table (B, n_blocks) maps each slot's logical blocks to pages.
+# Writes scatter through the table (masked positions go to page 0, the
+# null sink, so no conditional is needed); reads gather ``pool[table]``
+# into the exact (B, KV, S, hd) stacked view, after which the attention
+# math is the stacked steps'. Unwritten page slots, and the sink's garbage,
+# sit at masked positions whose softmax weight is exactly 0.0, so the paged
+# steps equal the stacked ones bit for bit. The scatters index two
+# advanced dims around a slice; as in NumPy, the broadcast index dims come
+# first, so ``pool[pid, :, off]`` is (B, KV, hd) for pid and off (B,).
+# Several rows may write the sink at one (page, offset): which one lands is
+# not fixed on CUDA, and nothing reads it unmasked (never accumulate).
+def _pool_view(pool, table):
+    """Gather (P, KV, ps, hd) pages into a (B, KV, n_blocks*ps, hd)
+    stacked-cache view through the page table (B, n_blocks)."""
+    B, nblk = table.shape
+    g = pool[table].permute(0, 2, 1, 3, 4)
+    return g.reshape(B, g.shape[1], nblk * pool.shape[2], g.shape[4])
+
+
+def attn_decode_paged_step(cfg, w, x, k_pool, v_pool, table, pos_vec,
+                           active):
+    """Fused multi-slot decode against the page pool. x: (B, 1, d);
+    table: (B, n_blocks) physical pages of this layer; pos_vec / active as
+    in ``attn_decode_step``. The new token's k/v scatter into page
+    ``table[b, pos_b // ps]`` at offset ``pos_b % ps`` (inactive slots
+    write the null page), then the gathered view feeds ``attend_decode``."""
+    B = x.shape[0]
+    ps = k_pool.shape[2]
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_project(w["attn"], cfg, h, pos_vec[:, None])
+    pos = pos_vec.to(torch.int64)
+    pid = table[torch.arange(B, device=x.device), pos // ps]
+    pid = torch.where(active, pid, 0)
+    off = pos % ps
+    k_pool[pid, :, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[pid, :, off] = v[:, 0].to(v_pool.dtype)
+    o = attn_mod.attend_decode(q, _pool_view(k_pool, table),
+                               _pool_view(v_pool, table), pos_vec)
+    return x + attn_mod.out_project(o.reshape(B, 1, -1), w["attn"]["wo"])
+
+
+def attn_prefill_paged_step(cfg, w, x, k_pool, v_pool, table, pos: int,
+                            valid_len: int):
+    """Layer-major prefill chunk against the page pool. x: (B, T, d) at
+    absolute positions pos..pos+T-1; padded-tail positions (>= valid_len)
+    scatter to the null page — the paged form of the stacked step's
+    masked cache write."""
+    B, T, _ = x.shape
+    ps = k_pool.shape[2]
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    q, k, v = attn_mod.qkv_project(w["attn"], cfg, h,
+                                   _positions(B, T, pos, x.device))
+    tpos = pos + torch.arange(T, device=x.device)
+    valid = torch.arange(T, device=x.device) < valid_len
+    pid = torch.where(valid[None, :], table[:, tpos // ps], 0)
+    off = (tpos % ps)[None, :].expand(B, T)
+    k_pool[pid, :, off] = k.to(k_pool.dtype)
+    v_pool[pid, :, off] = v.to(v_pool.dtype)
+    o = attn_mod.attend_cached(q, _pool_view(k_pool, table),
+                               _pool_view(v_pool, table), pos)
+    return x + attn_mod.out_project(o.reshape(B, T, -1), w["attn"]["wo"])
+
+
 # ------------------------------------------------------------ ffn
-def ffn_step(cfg, w, x):
-    """x + ffn(rmsnorm(x)), every matmul through K1, K2 or K3."""
-    return x + _ffn_streamed(cfg, w["ffn"], rmsnorm(x, w["ln2"],
-                                                    cfg.norm_eps))
+def ffn_step(cfg, w, x, cols=False):
+    """x + ffn(rmsnorm(x)), every matmul through K1, K2 or K3. ``cols``:
+    the norm per column (a verify window, ``_norm``)."""
+    return x + _ffn_streamed(cfg, w["ffn"], _norm(x, w["ln2"],
+                                                  cfg.norm_eps, cols))
 
 
 def _ffn_streamed(cfg, p, h):
@@ -123,11 +231,11 @@ def _valid_mask(B, T, valid_len, device):
         .expand(B, T)
 
 
-def moe_step(cfg, w, x):
+def moe_step(cfg, w, x, cols=False):
     """The monolithic MoE sub-layer: x + moe_ffn(rmsnorm(x)).
     w: {"moe": the layer's MoE tree (split per expert), "ln2"}."""
     return x + mlp_mod.moe_ffn(w["moe"], cfg,
-                               rmsnorm(x, w["ln2"], cfg.norm_eps))
+                               _norm(x, w["ln2"], cfg.norm_eps, cols))
 
 
 def moe_prefill_step(cfg, w, x, valid_len: int):
@@ -155,10 +263,10 @@ def moe_prefill_step(cfg, w, x, valid_len: int):
 # The reference's ``fold_expert_step`` (one executable for folding a
 # staged expert into a zero-filled stack) has no counterpart: no stack is
 # built, an expert computes from the tree it was staged in.
-def _route_dispatch(cfg, w, x, valid=None):
+def _route_dispatch(cfg, w, x, valid=None, cols=False):
     m = cfg.moe
     B, T, d = x.shape
-    h = rmsnorm(x, w["ln2"], cfg.norm_eps).reshape(B * T, d)
+    h = _norm(x, w["ln2"], cfg.norm_eps, cols).reshape(B * T, d)
     gates, idx, _ = mlp_mod._route(h, w["router"], m)
     if valid is not None:
         idx = torch.where(valid.reshape(B * T)[:, None], idx, m.n_experts)
@@ -167,9 +275,9 @@ def _route_dispatch(cfg, w, x, valid=None):
     return disp, aux, idx
 
 
-def moe_route_step(cfg, w, x):
+def moe_route_step(cfg, w, x, cols=False):
     """w: {"router", "ln2"}; x: (B, T, d). Returns (disp, aux, idx)."""
-    return _route_dispatch(cfg, w, x)
+    return _route_dispatch(cfg, w, x, cols=cols)
 
 
 def moe_route_prefill_step(cfg, w, x, valid_len: int):

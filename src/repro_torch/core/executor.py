@@ -1,5 +1,5 @@
 """Inference-phase executor (paper Step 3/4): run a planned schedule with
-pipelined copy-compute, dense and MoE decoders with stacked KV.
+pipelined copy-compute, dense and MoE decoders with stacked or paged KV.
 
 Executes the model *sub-layer by sub-layer* following the Schedule's
 per-tier plan: pinned sub-layers use weights placed on the device once;
@@ -26,8 +26,24 @@ turn, so at most the demand pool's slots hold cold experts on the card.
 No (E, ...) weight stack is built on either path: a sub-layer's experts
 are moved and kept as trees of their own (``mlp.split_experts``). The
 ledger holds exactly: ``streamed_bytes`` is the passes' static plan bytes
-plus ``demanded_expert_bytes``. The reference's demand deadline and its
-sync fallback belong to the faults slice: a cold expert is a plain acquire.
+plus ``demanded_expert_bytes`` plus ``demanded_page_bytes``. The
+reference's demand deadline and its sync fallback belong to the faults
+slice: a cold expert or page is a plain acquire.
+
+Paged KV (``kv_layout="paged"``, ``core/kvpaged.py``): each pass maps its
+write blocks first, then each layer pins its pages and restores the ones
+evicted to host memory before its attention step, through the prefetcher's
+demand pool (one ``kv_page`` entry per layer, a group per block; at use
+without overlap), so a page demand never sits ahead of an earlier MoE
+layer's expert demands.
+Admission prefill maps cached prefix blocks and prefills only the suffix.
+
+Speculative verify (``_run_verify``): W = k+1 positions per slot in one
+streamed pass. Attention advances as a wavefront of W decode steps, one per
+window column; embedding, FFN / MoE and the head run over the (B, W)
+window, each column bit-equal to a decode step's (the FFN's rows on K1–K3,
+norms and head per column, ``core/engine.py``). ``rollback_kv`` undoes the
+rejected suffix.
 """
 from __future__ import annotations
 
@@ -39,10 +55,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine as eng
+from repro_torch.core.costmodel import Placement
+from repro_torch.core.kvpaged import PAGE_SIZE, PagedKVCache
 from repro_torch.core.planner import Schedule
 from repro_torch.core.prefetch import (PrefetchEngine, groups_nbytes,
                                        groups_to_device, hand_to_compute,
                                        stage_groups)
+from repro_torch.core.sublayer import SubLayer
 from repro_torch.device import resolve_device
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import greedy_token, tree_map
@@ -94,6 +113,26 @@ class ExecStats:
     # buffers held at once: one chunk's capacity, or the sum over a
     # layer's chunks under expert-granular layer-major prefill
     moe_rows_peak: int = 0
+    # paged-KV block restores: the second demand-streamed shard kind beside
+    # cold experts ("kv" bucket in streamed_bytes_by_dtype)
+    page_faults: int = 0
+    demanded_page_bytes: int = 0
+    # speculative decoding: drafted = draft tokens offered to verify
+    # passes, accepted = drafted tokens the target confirmed (the bonus
+    # token from the target's own argmax is not counted), rollbacks =
+    # slots whose rejected KV suffix was rolled back
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_rollbacks: int = 0
+    spec_rolled_back_tokens: int = 0
+    spec_verify_passes: int = 0
+    # per verify pass: the streamed / static / expert / page byte split of
+    # the ledger streamed == static + experts + pages
+    verify_pass_stats: list = field(default_factory=list)
+
+    @property
+    def accept_rate(self) -> float:
+        return self.spec_accepted / max(self.spec_drafted, 1)
 
     @property
     def expert_hit_rate(self) -> float:
@@ -118,15 +157,23 @@ class PipelinedExecutor:
 
     def __init__(self, cfg, params, schedule: Schedule, max_seq: int = 512,
                  overlap: bool = True, prefill_mode: str | None = None,
-                 device=None):
+                 kv_layout: str = "stacked",
+                 kv_page_size: int | None = None,
+                 kv_pool_pages: int | None = None, device=None):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"the port's executor runs dense and MoE decoders, not "
                 f"family={cfg.family!r}")
+        if kv_layout not in ("stacked", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.schedule = schedule
         self.max_seq = max_seq
+        self.kv_layout = kv_layout
+        self.kv_page_size = kv_page_size or PAGE_SIZE
+        self.kv_pool_pages = kv_pool_pages   # usable pages; None -> ample
+        self._active_kvcache = None          # paged cache of the live pass
         prefill_mode = resolve_prefill_mode(prefill_mode)
         if prefill_mode not in ("layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
@@ -165,7 +212,7 @@ class PipelinedExecutor:
         self._sync_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._at_use_done = None   # CUDA event after the last at-use reader
-        self.prefetch = PrefetchEngine(self._subtree, self.device) \
+        self.prefetch = PrefetchEngine(self._host_groups, self.device) \
             if overlap else None
 
     def _pin(self, pl):
@@ -253,6 +300,16 @@ class PipelinedExecutor:
             return [mlp_mod.expert_tree(lp["moe"], sub.meta["expert"])]
         raise ValueError(sub.kind)
 
+    def _host_groups(self, sub):
+        """``_subtree``, and for a ``kv_page`` shard the evicted blocks'
+        host copies, a ``{"k", "v"}`` group per block, resolved against the
+        live pass's paged cache."""
+        if sub.kind == "kv_page":
+            cache = self._active_kvcache
+            assert cache is not None, "kv_page fetch outside a paged pass"
+            return [cache.host_tree(bid) for bid in sub.meta["bids"]]
+        return self._subtree(sub)
+
     @staticmethod
     def _join(groups):
         """The weight tree a step takes, from ``_subtree``'s groups on the
@@ -270,13 +327,18 @@ class PipelinedExecutor:
         streamed placement when overlap is disabled). The previous at-use
         tree's compute must have run first, so at most one at-use sub-layer
         is on the device however far the host runs ahead."""
+        return self._join(self._stage_sync(placement))
+
+    def _stage_sync(self, placement):
+        """``_fetch_sync``'s transfer: the device groups, not joined."""
         t_wait = time.perf_counter()
         if self._at_use_done is not None:
             self._at_use_done.synchronize()
             self._at_use_done = None
-        groups = self._subtree(placement.sub)
+        groups = self._host_groups(placement.sub)
         t0 = time.perf_counter()
-        dev, copied = stage_groups(groups, self.device, self._sync_stream)
+        dev, copied = stage_groups(groups, self.device, self._sync_stream,
+                                   ready=placement.sub.meta.get("ready"))
         t1 = time.perf_counter()
         nbytes = groups_nbytes(groups)
         self._sync_staged += nbytes
@@ -286,7 +348,7 @@ class PipelinedExecutor:
         else:
             self.stats.at_use_bytes += nbytes
             self.stats.at_use_s += t1 - t_wait
-        return self._join(hand_to_compute(dev, copied, self.device))
+        return hand_to_compute(dev, copied, self.device)
 
     def _weights_for(self, placement, streaming: set):
         """Returns (device tree, source): "pinned", "streamed" or
@@ -320,13 +382,67 @@ class PipelinedExecutor:
             self.stats.staged_bytes += ps.staged_bytes
             self.stats.prefetch_slots = ps.slots
 
+    # ------------------------------------------------------------ paged kv
+    def _page_placement(self, cache, layer: int, bids):
+        """Demand-only placement restoring ``bids``, one layer's evicted KV
+        blocks, as one entry of a ``{"k", "v"}`` group per block. Never
+        part of a plan (``kv_page`` is not a streamable kind): restores
+        ride the same demand pool, acquire / release protocol and
+        streamed-bytes ledger as cold experts, bucketed as "kv".
+        ``meta["ready"]`` is the blocks' last write-back event, which the
+        copy to the card waits for."""
+        sub = SubLayer(name=f"kvpage/L{layer}", kind="kv_page", layer=layer,
+                       weight_bytes=len(bids) * cache.block_bytes,
+                       meta={"quant": "kv", "bids": list(bids),
+                             "ready": cache.host_ready(bids)})
+        return Placement(sub=sub, residency="sysram", engine="gpu",
+                         streamed=True)
+
+    def _page_fault_layer(self, cache, layer: int, page_stream: bool):
+        """Restore this layer's evicted KV blocks before its attention
+        step, as one demand entry folded into the pools at once. Requests
+        go out per layer, not per pass: a pass-wide sweep would queue later
+        layers' pages ahead of an earlier MoE layer's expert demands."""
+        faults = cache.begin_layer(layer)
+        if not faults:
+            return
+        pl = self._page_placement(cache, layer, faults)
+        if page_stream:
+            self.prefetch.request([pl])
+            groups = self.prefetch.acquire(pl.sub.name)
+            self._account_streamed(pl)
+            cache.fold(faults, groups)
+            del groups
+            self.prefetch.release(pl.sub.name)
+        else:
+            # at-use restore: overlap disabled, or a straggler evicted
+            # after this pass's demand sizing; _stage_sync accounts the
+            # streamed bytes
+            cache.fold(faults, self._stage_sync(pl))
+            self._done_with(pl, "at_use")
+        self.stats.page_faults += len(faults)
+        self.stats.demanded_page_bytes += len(faults) * cache.block_bytes
+
+    def _prepare_pages(self, kv, pos_vec, active, width: int) -> int:
+        """Map a decode (``width`` 1) or verify pass's write blocks and
+        bind the cache to the pass. Returns the demand bytes its restores
+        need: the most evicted blocks of one layer, or 0."""
+        pos_h = pos_vec.cpu().numpy()
+        act_h = active.cpu().numpy()
+        faults = kv.prepare_verify({s: int(pos_h[s]) for s in
+                                    range(len(act_h)) if act_h[s]}, width)
+        self._active_kvcache = kv
+        return kv.layer_fault_bytes(faults)
+
     # ------------------------------------------------------------ passes
-    def _begin_pass(self, tier: int):
+    def _begin_pass(self, tier: int, page_demand_bytes: int = 0):
         """Start one pass at ``tier``: begin the prefetch session over the
         tier plan's streamed placements and return ``(by_name, streaming,
         started)``. Scratch sizing is read from the bound schedule's
         TierEntry each pass, so a live ``rebind`` re-sizes the next
-        session's staging budget automatically."""
+        session's staging budget automatically. ``page_demand_bytes``
+        joins the demand-slot sizing when the pass expects paged-KV
+        restores."""
         entry = self.schedule.tiers[tier]
         plan = entry.plan
         self.stats.tiers_used.append(tier)
@@ -343,6 +459,7 @@ class PipelinedExecutor:
             demand_bytes = max(
                 (p.sub.weight_bytes for p in plan.streamed_expert_placements()
                  if p.sub.name not in self._pinned_names), default=0)
+            demand_bytes = max(demand_bytes, page_demand_bytes)
         streaming = {p.sub.name for p in order}
         started = bool(order) or demand_bytes > 0
         self._demand_active = False
@@ -364,27 +481,28 @@ class PipelinedExecutor:
             self.stats.boundary_hops += 1
         return placement.engine
 
-    def _ffn_sub(self, i, xs, valid, by_name, streaming, prev_engine):
+    def _ffn_sub(self, i, xs, valid, by_name, streaming, prev_engine,
+                 cols=False):
         """Layer ``i``'s FFN sub-layer for the chunks ``xs`` (``valid``:
-        each chunk's valid length, or None for no mask). Returns (xs,
-        engine)."""
+        each chunk's valid length, or None for no mask; ``cols``: norms
+        per column, a verify window). Returns (xs, engine)."""
         cfg = self.cfg
         if self.expert_granular:
             pf = by_name[f"L{i}/moe.router"]
             if prev_engine is not None and prev_engine != pf.engine:
                 self.stats.boundary_hops += 1
-            return self._moe_granular(i, xs, valid, by_name,
-                                      streaming), pf.engine
+            return self._moe_granular(i, xs, valid, by_name, streaming,
+                                      cols), pf.engine
         pf = by_name[f"L{i}/moe" if cfg.moe is not None else f"L{i}/ffn"]
         w, src = self._weights_for(pf, streaming)
         prev_engine = self._note_engine(pf, prev_engine, calls=len(xs))
         if cfg.moe is None:
-            xs = [eng.ffn_step(cfg, w, x) for x in xs]
+            xs = [eng.ffn_step(cfg, w, x, cols) for x in xs]
         else:
             self._note_moe_rows(max(mlp_mod.capacity_of(
                 x.shape[0] * x.shape[1], cfg.moe) for x in xs))
             if valid is None:
-                xs = [eng.moe_step(cfg, w, x) for x in xs]
+                xs = [eng.moe_step(cfg, w, x, cols) for x in xs]
             else:
                 xs = [eng.moe_prefill_step(cfg, w, x, vl)
                       for x, vl in zip(xs, valid)]
@@ -392,11 +510,12 @@ class PipelinedExecutor:
         self._done_with(pf, src)
         return xs, prev_engine
 
-    def _layer_loop(self, x, by_name, streaming, attn_fn):
+    def _layer_loop(self, x, by_name, streaming, attn_fn, cols=False):
         """Walk every layer's (attn, ffn or moe) sub-layers under the
         current pass's plan: fetch weights (pinned / prefetched / at-use),
         account engine calls and boundary hops, run the sub-layer, release
-        scratch slots. ``attn_fn(w, x, i)`` supplies the attention step."""
+        scratch slots. ``attn_fn(w, x, i)`` supplies the attention step;
+        ``cols`` goes to the FFN sub-layer."""
         cfg = self.cfg
         prev_engine = None
         for i in range(cfg.n_layers):
@@ -407,7 +526,7 @@ class PipelinedExecutor:
             del w
             self._done_with(pa, src)
             (x,), prev_engine = self._ffn_sub(i, [x], None, by_name,
-                                              streaming, prev_engine)
+                                              streaming, prev_engine, cols)
         return x
 
     # ------------------------------------------------ expert-granular moe
@@ -474,7 +593,8 @@ class PipelinedExecutor:
             del tree
             self._done_with(pl, src)
 
-    def _moe_granular(self, layer, xs, valid, by_name, streaming):
+    def _moe_granular(self, layer, xs, valid, by_name, streaming,
+                      cols=False):
         """One expert-granular MoE sub-layer over the chunks ``xs``: route
         every chunk, then demand the union of the routed cold experts
         once, so under layer-major prefill each cold expert crosses the
@@ -489,7 +609,7 @@ class PipelinedExecutor:
         jobs, routed_aux, union = [], [], set()
         for c, x in enumerate(xs):
             if valid is None:
-                disp, aux, idx = eng.moe_route_step(self.cfg, w_r, x)
+                disp, aux, idx = eng.moe_route_step(self.cfg, w_r, x, cols)
             else:
                 disp, aux, idx = eng.moe_route_prefill_step(
                     self.cfg, w_r, x, valid[c])
@@ -543,24 +663,40 @@ class PipelinedExecutor:
         positions; active: (B,) bool slot mask (all on the device);
         n_active: batch-wide new token count (drives the tier pick). All
         slots run through one batched pass, so every streamed sub-layer
-        crosses the link exactly once per iteration."""
+        crosses the link exactly once per iteration. ``kv``: the stacked
+        dict, or a ``PagedKVCache`` whose pages this pass maps and
+        restores."""
+        paged = isinstance(kv, PagedKVCache)
+        page_demand = self._prepare_pages(kv, pos_vec, active, 1) \
+            if paged else 0
         by_name, streaming, started = self._begin_pass(
-            self.schedule.pick_decode_tier(n_active))
+            self.schedule.pick_decode_tier(n_active),
+            page_demand_bytes=page_demand)
+        page_stream = paged and self._demand_active
         streamed_before = self.stats.streamed_bytes
         expert_before = (self.stats.expert_demanded, self.stats.expert_hits,
                          self.stats.demanded_expert_bytes)
         self._layer_demanded = []
         try:
             x = eng.embed_step(self._embed_dev, tokens)
-            k, v = kv["k"], kv["v"]
-            x = self._layer_loop(
-                x, by_name, streaming,
-                lambda w, x, i: eng.attn_decode_step(self.cfg, w, x, k, v, i,
-                                                     pos_vec, active))
+            if paged:
+                def attn(w, x, i):
+                    self._page_fault_layer(kv, i, page_stream)
+                    x = eng.attn_decode_paged_step(
+                        self.cfg, w, x, kv.k_pool, kv.v_pool,
+                        kv.layer_table(i), pos_vec, active)
+                    kv.end_layer(i)
+                    return x
+            else:
+                def attn(w, x, i):
+                    return eng.attn_decode_step(self.cfg, w, x, kv["k"],
+                                                kv["v"], i, pos_vec, active)
+            x = self._layer_loop(x, by_name, streaming, attn)
             logits = eng.head_step(self.cfg, self._final_dev,
                                    self._unembed_dev, x)
         finally:
             self._end_pass(started)
+            self._active_kvcache = None
         self.stats.decode_passes += 1
         self.stats.pass_streamed_bytes.append(
             self.stats.streamed_bytes - streamed_before)
@@ -579,7 +715,109 @@ class PipelinedExecutor:
             })
         return logits, kv
 
+    def _run_verify(self, tokens, kv, pos_vec, active, n_active: int):
+        """One speculative verify pass: score ``W = k+1`` positions per
+        active slot in a single streamed pass.
+
+        tokens: (B, W) on the device — column 0 is each slot's last
+        committed token at ``pos_vec``, columns 1..k the draft's
+        proposals. Embedding, FFN / MoE and the head run over the whole
+        (B, W) window, attention as a wavefront: W calls of the decode
+        step, one per window column, each on a fresh (B, 1, d) column and
+        the cache state sequential decode would see. Every op that reduces
+        runs per column at the decode step's shape (the norms, the head)
+        or has rows independent of M (K1–K3), so the pass equals W
+        sequential decode steps bit for bit, while the weights cross the
+        link once per layer and a cold expert is demanded once per layer
+        and window. Rejected KV suffixes are undone by ``rollback_kv``.
+
+        The tier pick sees ``n_active * W`` new tokens: a verify pass is a
+        batch-wide token count of that size. Returns ((B, W, V) logits,
+        kv)."""
+        B, W = tokens.shape
+        paged = isinstance(kv, PagedKVCache)
+        page_demand = self._prepare_pages(kv, pos_vec, active, W) \
+            if paged else 0
+        tier = self.schedule.pick_decode_tier(n_active * W)
+        by_name, streaming, started = self._begin_pass(
+            tier, page_demand_bytes=page_demand)
+        page_stream = paged and self._demand_active
+        before = (self.stats.streamed_bytes,
+                  self.stats.demanded_expert_bytes,
+                  self.stats.demanded_page_bytes)
+        # this tier's plan bytes, streamed whatever the demand traffic
+        static_bytes = sum(
+            p.sub.weight_bytes
+            for p in self.schedule.tiers[tier].plan.static_stream_order()
+            if p.sub.name not in self._pinned_names)
+        self._layer_demanded = []
+        try:
+            x = eng.embed_step(self._embed_dev, tokens)
+
+            def attn(w, x, i):
+                if not paged:
+                    return torch.cat([eng.attn_decode_step(
+                        self.cfg, w, eng.column(x, j), kv["k"], kv["v"], i,
+                        pos_vec + j, active) for j in range(W)], dim=1)
+                # prepare_verify mapped all W positions up front: the table
+                # holds across the window, only the pools change
+                self._page_fault_layer(kv, i, page_stream)
+                table = kv.layer_table(i)
+                x = torch.cat([eng.attn_decode_paged_step(
+                    self.cfg, w, eng.column(x, j), kv.k_pool, kv.v_pool,
+                    table, pos_vec + j, active) for j in range(W)], dim=1)
+                kv.end_layer(i)
+                return x
+
+            x = self._layer_loop(x, by_name, streaming, attn, cols=True)
+            # unlike a prefill the head scores ALL W positions: the
+            # acceptance loop needs the target's argmax at every one
+            logits = torch.cat([eng.head_step(self.cfg, self._final_dev,
+                                              self._unembed_dev,
+                                              eng.column(x, j))
+                                for j in range(W)], dim=1)
+        finally:
+            self._end_pass(started)
+            self._active_kvcache = None
+        self.stats.spec_verify_passes += 1
+        self.stats.verify_pass_stats.append({
+            "width": W,
+            "streamed_bytes": self.stats.streamed_bytes - before[0],
+            "static_plan_bytes": static_bytes,
+            "demanded_expert_bytes":
+                self.stats.demanded_expert_bytes - before[1],
+            "demanded_page_bytes":
+                self.stats.demanded_page_bytes - before[2],
+        })
+        return logits, kv
+
+    def rollback_kv(self, kv, keep_pos, rollback_mask):
+        """Undo the KV writes a verify pass made for rejected positions.
+        ``keep_pos[b]`` is the first cache index to clear for slot ``b``
+        (old pos + accepted count); ``rollback_mask[b]`` selects the slots
+        that rejected a suffix (host arrays). A stacked cache zeroes the
+        tail in place (``engine.rollback_step``: byte-equal to never having
+        written it); a paged cache truncates through the page table,
+        releasing whole rejected blocks and zeroing the partial one."""
+        keep_h = np.asarray(keep_pos)
+        mask_h = np.asarray(rollback_mask)
+        if isinstance(kv, PagedKVCache):
+            for s in range(len(mask_h)):
+                if mask_h[s]:
+                    kv.truncate(int(s), int(keep_h[s]))
+            return kv
+        eng.rollback_step(kv["k"], kv["v"],
+                          torch.as_tensor(keep_h).to(self.device),
+                          torch.as_tensor(mask_h).to(self.device))
+        return kv
+
     def init_kv(self, batch):
+        if self.kv_layout == "paged":
+            n_pages = None if self.kv_pool_pages is None \
+                else self.kv_pool_pages + 1      # + the null write sink
+            return PagedKVCache(self.cfg, batch, self.max_seq,
+                                page_size=self.kv_page_size,
+                                n_pages=n_pages, device=self.device)
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
 
     def prefill(self, tokens, kv=None, prefill_mode: str | None = None,
@@ -591,7 +829,10 @@ class PipelinedExecutor:
         every chunk against the resident weights (weight-stationary);
         ``"chunk_major"`` runs one full plan pass per chunk. ``kv`` lets a
         caller (the serving batcher) prefill into an existing cache;
-        ``slot`` targets one row of that shared cache (B must be 1).
+        ``slot`` targets one row of that shared cache (B must be 1). A
+        paged ``kv`` also runs the prefix-cache lookup for a single
+        sequence: matched full blocks are mapped read-only and only the
+        suffix is computed, then its full blocks are published.
         Returns ((B, 1, V) last logits, kv, T)."""
         mode = prefill_mode if prefill_mode is not None else \
             self.prefill_mode
@@ -601,12 +842,24 @@ class PipelinedExecutor:
         B, T = tokens.shape
         if kv is None:
             kv = self.init_kv(B)
-        if slot is not None and mode != "layer_major":
-            raise ValueError("slot-targeted prefill runs layer-major only")
+        paged = isinstance(kv, PagedKVCache)
+        if (paged or slot is not None) and mode != "layer_major":
+            raise ValueError("paged / slot-targeted prefill runs "
+                             "layer-major only")
         if slot is not None and B != 1:
             raise ValueError("slot-targeted prefill admits ONE sequence")
+        rows, pos0, page_demand = None, 0, 0
+        if paged:
+            rows = [slot] if slot is not None else list(range(B))
+            tok_np = tokens.cpu().numpy()
+            if B == 1:
+                pos0 = kv.prefix_attach(rows[0], tok_np[0])
+            faults = kv.prepare_prefill([(r, T, pos0) for r in rows])
+            page_demand = kv.layer_fault_bytes(faults)
+            self._active_kvcache = kv
         if mode == "layer_major":
-            tier = self.schedule.pick_prefill_tier(B * T, min_tier=B)
+            tier = self.schedule.pick_prefill_tier(B * (T - pos0),
+                                                   min_tier=B)
         else:
             tier = self.schedule.pick_tier(B * T)
         if tier // B < 1:
@@ -619,9 +872,15 @@ class PipelinedExecutor:
             # always the full tier chunk — a short prompt pads up instead
             # of shrinking the chunk
             chunk = tier // B
-            logits, ring_bytes = self._prefill_layer_major(
-                tokens, kv, chunk, tier, slot=slot)
-            chunks = -(-T // chunk)
+            try:
+                logits, ring_bytes = self._prefill_layer_major(
+                    tokens[:, pos0:], kv, chunk, tier, slot=slot, rows=rows,
+                    pos0=pos0, page_demand=page_demand)
+            finally:
+                self._active_kvcache = None
+            if paged and B == 1:
+                kv.prefix_register(rows[0], tok_np[0])
+            chunks = -(-(T - pos0) // chunk)
         else:
             chunk = min(T, tier // B)
             logits = None
@@ -635,11 +894,13 @@ class PipelinedExecutor:
                 self.stats.prefill_passes += 1
                 chunks += 1
                 pos = end
-        self._record_prefill(mode, chunks, before, ring_bytes, tokens=T)
+        self._record_prefill(mode, chunks, before, ring_bytes,
+                             tokens=T - pos0, prefix_tokens=pos0)
         return logits[:, -1:], kv, T
 
     def _prefill_layer_major(self, tokens, kv, chunk: int, tier: int,
-                             slot: int | None = None):
+                             slot: int | None = None, rows=None,
+                             pos0: int = 0, page_demand: int = 0):
         """Weight-stationary prefill: ONE prefetch session per prompt; for
         each sub-layer in stream order, all chunks run against the resident
         weights before the stream advances — so each streamed sub-layer
@@ -651,19 +912,24 @@ class PipelinedExecutor:
         ``max_seq`` (the clamped write would shift over valid positions) or
         an MoE chunk would leave the dropless capacity regime (padding
         grows the capacity, which could keep assignments the unpadded
-        chunk drops); then the tail runs at its natural length."""
+        chunk drops); then the tail runs at its natural length.
+        ``tokens`` are the positions from ``pos0`` on (a paged prefix hit
+        covers the ones before); a paged cache's pages are restored and
+        its table read per layer (``rows``: the slots of the batch)."""
         cfg = self.cfg
+        paged = isinstance(kv, PagedKVCache)
         B, T = tokens.shape
         C = -(-T // chunk)
         tail = T - (C - 1) * chunk
-        pad_ok = C * chunk <= self.max_seq and (
+        pad_ok = pos0 + C * chunk <= self.max_seq and (
             cfg.moe is None
             or mlp_mod.capacity_is_dropless(B * chunk, cfg.moe))
         pad = C * chunk - T if pad_ok else 0
         if pad:
             tokens = F.pad(tokens, (0, pad))
-        by_name, streaming, started = self._begin_pass(tier)
-        k, v = kv["k"], kv["v"]
+        by_name, streaming, started = self._begin_pass(
+            tier, page_demand_bytes=page_demand)
+        page_stream = paged and self._demand_active
         try:
             xs = [eng.embed_step(self._embed_dev,
                                  tokens[:, c * chunk:(c + 1) * chunk])
@@ -674,14 +940,24 @@ class PipelinedExecutor:
                 pa = by_name[f"L{i}/attn"]
                 w, src = self._weights_for(pa, streaming)
                 prev_engine = self._note_engine(pa, prev_engine, calls=C)
-                for c in range(C):
-                    if slot is not None:
+                if paged:
+                    self._page_fault_layer(kv, i, page_stream)
+                    table = kv.layer_table(i, rows=rows)
+                    for c in range(C):
+                        xs[c] = eng.attn_prefill_paged_step(
+                            cfg, w, xs[c], kv.k_pool, kv.v_pool, table,
+                            pos0 + c * chunk, valid[c])
+                    kv.end_layer(i)
+                elif slot is not None:
+                    for c in range(C):
                         xs[c] = eng.attn_prefill_slot_step(
-                            cfg, w, xs[c], k, v, i, slot, c * chunk,
-                            valid[c])
-                    else:
+                            cfg, w, xs[c], kv["k"], kv["v"], i, slot,
+                            c * chunk, valid[c])
+                else:
+                    for c in range(C):
                         xs[c] = eng.attn_prefill_step(
-                            cfg, w, xs[c], k, v, i, c * chunk, valid[c])
+                            cfg, w, xs[c], kv["k"], kv["v"], i, c * chunk,
+                            valid[c])
                 del w
                 self._done_with(pa, src)
                 xs, prev_engine = self._ffn_sub(i, xs, valid, by_name,
@@ -698,26 +974,44 @@ class PipelinedExecutor:
     def _prefill_snapshot(self):
         s = self.stats
         return (s.streamed_bytes, s.copy_s_hidden, s.copy_s_exposed,
-                s.prefill_passes, s.demanded_expert_bytes)
+                s.prefill_passes, s.demanded_expert_bytes,
+                s.demanded_page_bytes)
 
-    def _record_prefill(self, mode, chunks, before, ring_bytes, tokens=0):
+    def _record_prefill(self, mode, chunks, before, ring_bytes, tokens=0,
+                        prefix_tokens=0):
         s = self.stats
         s.prefill_stats.append({
             "mode": mode,
             "chunks": chunks,
+            # prefilled suffix against prefix-cache coverage: a prefix hit
+            # shows as prefix_tokens > 0 and fewer tokens
             "tokens": tokens,
+            "prefix_tokens": prefix_tokens,
             "act_ring_bytes": ring_bytes,
             "passes": s.prefill_passes - before[3],
             "streamed_bytes": s.streamed_bytes - before[0],
             "demanded_expert_bytes": s.demanded_expert_bytes - before[4],
             "copy_s_hidden": s.copy_s_hidden - before[1],
             "copy_s_exposed": s.copy_s_exposed - before[2],
+            "demanded_page_bytes": s.demanded_page_bytes - before[5],
         })
 
     def decode(self, last_tokens, kv, pos: int, steps=8):
-        """Greedy decode loop; returns (B, steps) numpy tokens and kv."""
+        """Greedy decode loop; returns (B, steps) numpy tokens and kv. A
+        paged cache decodes through the fused multi-slot pass with every
+        row active."""
         out = []
         tok = last_tokens.to(self.device)
+        if isinstance(kv, PagedKVCache):
+            B = tok.shape[0]
+            active = torch.ones((B,), dtype=torch.bool, device=self.device)
+            for s in range(steps):
+                pos_vec = torch.full((B,), pos + s, dtype=torch.int32,
+                                     device=self.device)
+                logits, kv = self._run_decode(tok, kv, pos_vec, active, B)
+                tok = greedy_token(logits[:, -1:])
+                out.append(tok[:, 0].cpu().numpy())
+            return np.stack(out, axis=1), kv
         for s in range(steps):
             logits, kv = self._run_chunk(tok, kv, pos + s)
             tok = greedy_token(logits[:, -1:])

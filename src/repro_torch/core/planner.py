@@ -21,13 +21,9 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.costmodel import (Placement, Plan, TimingEstimator,
                                         kv_block_bytes)
+from repro_torch.core.kvpaged import PAGE_SIZE as KV_PAGE_SIZE
 from repro_torch.core.sublayer import STREAMABLE_KINDS, SubLayer
 from repro_torch.core.system import InferenceSetting
-
-# Tokens per KV block (one page per cache side). The paged KV cache is not
-# ported yet; its block size is kept here so the planner's kv_pool_bytes
-# sizing matches the reference byte for byte.
-KV_PAGE_SIZE = 16
 
 TIERS = (1, 4, 16, 32, 64, 512, 1024, 2048, 4096, 8192, 16384)
 

@@ -30,17 +30,20 @@ scratch double-buffer. The reference simulated the link with
 On the CPU (the tests) there is no link: staging is a no-op ``.to("cpu")``
 on the worker thread, with the same slots, order and accounting.
 
-Demand streaming (expert-granular MoE): which cold experts a pass needs is
-known only once each layer's router has run, so a session started with
-``demand_bytes > 0`` takes ``request()`` calls mid-pass. The demand pool
+Demand streaming (expert-granular MoE, paged-KV restores): which cold
+experts a pass needs is known only once each layer's router has run, and
+which evicted KV blocks once the layer's pages are pinned, so a session
+started with ``demand_bytes > 0`` takes ``request()`` calls mid-pass. The demand pool
 has its own slots (1 or 2, from what the static slots leave of the
 scratch), each a device buffer kept for the session, and its own copy
 stream. Unlike the reference's, it has no worker thread: the consumer
 issues each demanded copy itself, on ``request()`` while a slot is free
 and on the ``release()`` that frees one, and nothing waits for a copy on
 the host. The copy stream waits for the slot's freed-slot event (its last
-reader's compute) before it writes the slot, and the compute stream waits
-for the copy's event before it reads it. A thread handing each expert
+reader's compute) before it writes the slot, and for a KV block's
+write-back event (``sub.meta["ready"]``) before it reads the block's host
+copy; the compute stream waits for the copy's event before it reads the
+slot. A thread handing each expert
 over cost about as much host time as the copies it hid (``copy_modes.py``
 on the card, PERF.md), as the two threads traded the interpreter lock at
 every op. Separate pools keep demands deadlock-free: the static worker may
@@ -72,8 +75,8 @@ class PrefetchStats:
     staged_bytes: int = 0        # actual bytes moved host->device
     staged_sublayers: int = 0
     slots: int = 0               # realised double-buffer depth (0: no session)
-    demand_slots: int = 0        # realised demand-pool depth (expert shards)
-    demanded_sublayers: int = 0  # shards staged through the demand queue
+    demand_slots: int = 0        # realised demand-pool depth
+    demanded_sublayers: int = 0  # entries staged through the demand queue
 
 
 class _Staged:
@@ -150,13 +153,17 @@ def groups_to_device(groups, device, non_blocking=False):
             for g in groups]
 
 
-def stage_groups(groups, device, stream):
+def stage_groups(groups, device, stream, ready=None):
     """Copy a list of host weight trees to ``device`` on ``stream``
     (``groups_to_device``) and wait for it on the calling thread only.
-    Returns (device groups, CUDA event or None)."""
+    ``ready``: a CUDA event the copy must follow on the card (a paged-KV
+    block's write-back into the host memory it reads). Returns (device
+    groups, CUDA event or None)."""
     if device.type != "cuda":
         return groups_to_device(groups, device), None
     with torch.cuda.device(device), torch.cuda.stream(stream):
+        if ready is not None:
+            stream.wait_event(ready)
         dev = groups_to_device(groups, device, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record(stream)
@@ -328,11 +335,15 @@ class PrefetchEngine:
         while self._demand_q and self._demand_free:
             pl, st = self._demand_q.popleft()
             st.slot = self._demand_free.pop()
+            # a shard whose host data is still being written carries the
+            # write's event in its meta (paged-KV write-backs)
+            meta = getattr(pl.sub, "meta", {})
             with self._lock:
                 self.stats.demanded_sublayers += 1
             try:
                 host = self._fetch_host(pl.sub)
-                st.tree, st.copied = self._stage_into_slot(host, st.slot)
+                st.tree, st.copied = self._stage_into_slot(
+                    host, st.slot, meta.get("ready"))
                 with self._lock:
                     self.stats.staged_bytes += groups_nbytes(host)
                     self.stats.staged_sublayers += 1
@@ -340,10 +351,12 @@ class PrefetchEngine:
                 st.error = e
             st.event.set()
 
-    def _stage_into_slot(self, groups, slot):
+    def _stage_into_slot(self, groups, slot, ready=None):
         """``groups`` packed into demand slot ``slot``'s buffer on the
-        demand stream, once the slot's last reader has run on the card.
-        Returns (device groups, CUDA event after the copy, or None)."""
+        demand stream, once the slot's last reader has run on the card
+        (and ``ready``, if given, the host data's last write: a paged-KV
+        block's write-back). Returns (device groups, CUDA event after the
+        copy, or None)."""
         if self.device.type != "cuda":
             return groups_to_device(groups, self.device), None
         stream, need = self._demand_stream, packed_nbytes(groups)
@@ -354,6 +367,8 @@ class PrefetchEngine:
                     need, dtype=torch.uint8, device=self.device)
             if self._demand_freed[slot] is not None:
                 stream.wait_event(self._demand_freed[slot])
+            if ready is not None:
+                stream.wait_event(ready)
             dev, offset = [], 0
             for g in groups:
                 leaves = tree_leaves(g)

@@ -15,6 +15,15 @@ streamed sub-layer crosses the link exactly once per iteration regardless
 of how many slots are in flight. ``fused=False`` keeps the per-slot loop
 (one pass per active slot, at the same full-batch shapes with a one-hot
 mask) as the baseline the bit-identity tests compare against.
+
+With ``kv_layout="paged"`` the caches are a ``PagedKVCache``: admission
+maps pages (and cached prompt prefixes) inside ``executor.prefill``, and
+retiring or cancelling a request unmaps its pages. With a ``SpecDecoder``
+and ``spec_k > 0`` each decode iteration drafts ``k`` tokens per slot on
+the pinned draft, verifies them in one streamed target pass, commits the
+longest accepted prefix plus the target's bonus token and rolls back the
+rejected KV suffix (``_decode_spec``): the tokens equal plain greedy
+decode's.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import PipelinedExecutor
+from repro_torch.core.kvpaged import PagedKVCache
 from repro_torch.core.planner import Schedule
 from repro_torch.models.common import greedy_token
 
@@ -93,7 +103,10 @@ class ContinuousBatcher:
                  overlap: bool = True,
                  executor: Optional[PipelinedExecutor] = None,
                  session=None, prefill_mode: Optional[str] = None,
-                 device=None):
+                 kv_layout: str = "stacked",
+                 kv_page_size: Optional[int] = None,
+                 kv_pool_pages: Optional[int] = None,
+                 spec=None, spec_k: int = 0, device=None):
         self.cfg = cfg
         self._session = session
         if executor is not None:
@@ -105,6 +118,11 @@ class ContinuousBatcher:
                     f"batcher executor runs prefill_mode="
                     f"{executor.prefill_mode!r}; cannot build with "
                     f"{prefill_mode!r} (set it on the Session/executor)")
+            if kv_layout != "stacked" and kv_layout != executor.kv_layout:
+                raise ValueError(
+                    f"batcher executor runs kv_layout="
+                    f"{executor.kv_layout!r}; cannot build with "
+                    f"{kv_layout!r} (set it on the Session/executor)")
             self.ex = executor
             self.schedule = executor.schedule
             self.max_seq = executor.max_seq
@@ -114,11 +132,20 @@ class ContinuousBatcher:
             self.ex = PipelinedExecutor(cfg, params, schedule,
                                         max_seq=max_seq, overlap=overlap,
                                         prefill_mode=prefill_mode,
+                                        kv_layout=kv_layout,
+                                        kv_page_size=kv_page_size,
+                                        kv_pool_pages=kv_pool_pages,
                                         device=device)
         self.device = self.ex.device
         self.max_batch = max_batch
         self.fused = fused
+        # speculative decoding: a SpecDecoder drafting spec_k tokens per
+        # iteration for the fused verify pass; spec_k = 0 (or no decoder)
+        # keeps every iteration a plain fused step
+        self.spec = spec
+        self.spec_k = spec_k if spec is not None and fused else 0
         self.kv = self.ex.init_kv(max_batch)
+        self._paged = isinstance(self.kv, PagedKVCache)
         self.slots: List[Optional[Request]] = [None] * max_batch
         # the admission queue outlives serve() calls: a paused serve may
         # return before every request found a free slot
@@ -143,7 +170,9 @@ class ContinuousBatcher:
         under it (``session.update_budget`` / ``batcher.rebudget``) — the
         executor swaps pinned weights, never this batcher's KV stacks."""
         return cls(session.cfg, max_batch=max_batch, fused=fused,
-                   executor=session.executor, session=session)
+                   executor=session.executor, session=session,
+                   spec=session.spec_decoder(max_batch),
+                   spec_k=session.spec_k if session.spec_active else 0)
 
     def rebudget(self, new_budget_bytes: int):
         """Re-plan the session under a new VRAM budget between iterations.
@@ -162,6 +191,15 @@ class ContinuousBatcher:
         """Adopt a re-planned schedule (tier picks use it from the next
         iteration)."""
         self.schedule = schedule
+
+    def _bind_spec(self, spec, spec_k: int):
+        """Adopt the session's re-checked speculation state after a
+        re-plan: a shrunk budget that no longer fits the draft turns
+        speculation off (the next iteration is a plain fused step, with
+        the same tokens), and a later growth turns it back on against the
+        draft's still-live KV."""
+        self.spec = spec
+        self.spec_k = spec_k if spec is not None and self.fused else 0
 
     # ------------------------------------------------------------ admit
     def _admit(self, queue: List[Request]):
@@ -186,18 +224,24 @@ class ContinuousBatcher:
 
     def _prefill_slot(self, slot: int, req: Request):
         """Chunked prefill of one request into its row of the shared KV.
-        Layer-major runs the slot-threaded step; chunk-major prefills a
-        view of the row, which writes the shared cache in place."""
+        Layer-major runs the slot-threaded step (a paged cache maps pages
+        and looks up the prefix cache there); chunk-major prefills a view
+        of the row, which writes the shared cache in place."""
         T = len(req.prompt)
         tokens = torch.as_tensor(req.prompt, dtype=torch.int32)[None, :]
         n_tiers = len(self.ex.stats.tiers_used)
-        if self.ex.prefill_mode == "layer_major":
+        if self._paged or self.ex.prefill_mode == "layer_major":
             logits, _, _ = self.ex.prefill(tokens, kv=self.kv, slot=slot)
         else:
             kv_slot = {"k": self.kv["k"][:, slot:slot + 1],
                        "v": self.kv["v"][:, slot:slot + 1]}
             logits, _, _ = self.ex.prefill(tokens, kv=kv_slot)
         self.tier_log.extend(self.ex.stats.tiers_used[n_tiers:])
+        if self.spec is not None:
+            # the draft's KV slot follows the target's; kept while spec_k
+            # is 0 (a re-plan turned it off) so a later re-enable finds
+            # the prompt in place
+            self.spec.prefill_slot(slot, req.prompt)
         nxt = int(greedy_token(logits[0, -1]))
         req.generated.append(nxt)
         req.first_token_at = time.perf_counter()
@@ -216,6 +260,10 @@ class ContinuousBatcher:
         req.done_at = time.perf_counter()
         self.completed.append(req)
         self.slots[slot] = None
+        if self._paged:
+            # unmap the sequence's pages; prefix-cached blocks survive
+            # through the cache's own reference
+            self.kv.free_slot(slot)
 
     # ------------------------------------------------------------ decode
     def _decode_iteration(self):
@@ -226,7 +274,9 @@ class ContinuousBatcher:
             return
         before = self.ex.stats.streamed_bytes
         moved_before = self.ex.stats.staged_bytes
-        if self.fused:
+        if self.spec_k > 0:
+            self._decode_spec(active)
+        elif self.fused:
             self._decode_fused(active)
         else:
             self._decode_per_slot(active)
@@ -256,6 +306,81 @@ class ContinuousBatcher:
         nxt = greedy_token(logits[:, -1]).cpu().numpy()
         for i in active:
             self._advance(i, int(nxt[i]))
+
+    def _seq_token(self, req: Request, idx: int) -> int:
+        """Committed token at sequence index ``idx``: prompt positions
+        first, then generated tokens (generated[0] sits at position
+        len(prompt), the prefill's token)."""
+        T = len(req.prompt)
+        if idx < T:
+            return int(req.prompt[idx])
+        return int(req.generated[idx - T])
+
+    def _decode_spec(self, active: List[int]):
+        """One speculative iteration: draft ``k`` greedy tokens per active
+        slot on the pinned draft, verify all ``k+1`` positions in ONE
+        streamed target pass, commit the longest accepted prefix plus the
+        target's bonus token, roll back the rejected KV suffix. Every
+        committed token is the target's own argmax over the same context,
+        so the output equals plain greedy decode.
+
+        The window is clamped so every active slot's writes stay inside the
+        cache (``pos + W <= max_seq``); near the end it falls back to a
+        plain fused step."""
+        W = min(self.spec_k + 1,
+                self.max_seq - max(self.slots[i].pos for i in active))
+        if W < 2:
+            self._decode_fused(active)
+            return
+        k = W - 1
+        B = self.max_batch
+        pos_vec = np.zeros((B,), np.int32)
+        mask = np.zeros((B,), bool)
+        prev_tok = np.zeros((B,), np.int32)
+        for i in active:
+            r = self.slots[i]
+            pos_vec[i] = r.pos
+            mask[i] = True
+            prev_tok[i] = self._seq_token(r, r.pos - 1)
+        last = self.last_tokens.reshape(-1)
+        drafts = self.spec.draft(prev_tok, last, pos_vec, mask, k,
+                                 n_active=len(active))
+        tokens = np.concatenate([last[:, None], drafts],
+                                axis=1).astype(np.int32)
+        # a verify pass is a batch-wide new-token count of n_active * W
+        self.tier_log.append(self.schedule.pick_decode_tier(len(active) * W))
+        dev = self.device
+        logits, self.kv = self.ex._run_verify(
+            torch.as_tensor(tokens).to(dev), self.kv,
+            torch.as_tensor(pos_vec).to(dev), torch.as_tensor(mask).to(dev),
+            n_active=len(active))
+        targets = greedy_token(logits).cpu().numpy()       # (B, W)
+        keep_pos = np.zeros((B,), np.int32)
+        roll_mask = np.zeros((B,), bool)
+        st = self.ex.stats
+        for i in active:
+            r = self.slots[i]
+            # longest accepted draft prefix: d_{j+1} == the target's
+            # greedy continuation t_j over the same committed context
+            a = 0
+            while a < k and drafts[i, a] == targets[i, a]:
+                a += 1
+            e = min(a + 1, r.max_new_tokens - len(r.generated))
+            st.spec_drafted += k
+            st.spec_accepted += e - 1      # the bonus token is not counted
+            for j in range(e):
+                self._advance(i, int(targets[i, j]))
+            if e < W:
+                st.spec_rollbacks += 1
+                st.spec_rolled_back_tokens += W - e
+                # a retired slot needs no rollback: a paged free_slot
+                # already released its blocks, and a stacked slot's stale
+                # tail is masked until the next admission overwrites it
+                if self.slots[i] is not None:
+                    keep_pos[i] = pos_vec[i] + e
+                    roll_mask[i] = True
+        if roll_mask.any():
+            self.kv = self.ex.rollback_kv(self.kv, keep_pos, roll_mask)
 
     def _decode_per_slot(self, active: List[int]):
         """Baseline: slots decode one at a time, paying the streamed-weight
@@ -322,6 +447,8 @@ class ContinuousBatcher:
             if r is not None and r.rid == rid:
                 r.cancelled_at = time.perf_counter()
                 self.slots[slot] = None
+                if self._paged:
+                    self.kv.free_slot(slot)
                 self.cancelled.append(r)
                 return "active"
         return None
@@ -341,8 +468,9 @@ class ContinuousBatcher:
         iters = self.iter_streamed_bytes
         total_generated = sum(len(r.generated) for r in done) \
             + sum(len(r.generated) for r in self.slots if r is not None)
-        return {
+        out = {
             "iterations": self.iterations,
+            "kv_layout": self.ex.kv_layout,
             "tiers_used": sorted(set(self.tier_log)),
             "streamed_bytes": self.ex.stats.streamed_bytes,
             "streamed_bytes_by_dtype":
@@ -373,4 +501,22 @@ class ContinuousBatcher:
             "expert_demanded": self.ex.stats.expert_demanded,
             "demanded_expert_bytes": self.ex.stats.demanded_expert_bytes,
             "resident_expert_bytes": self.ex.stats.resident_expert_bytes,
+            # speculative decoding: always present, all zeros while
+            # speculation is off
+            "spec_k": self.spec_k,
+            "spec_drafted": self.ex.stats.spec_drafted,
+            "spec_accepted": self.ex.stats.spec_accepted,
+            "accept_rate": self.ex.stats.accept_rate,
+            "spec_rollbacks": self.ex.stats.spec_rollbacks,
+            "spec_rolled_back_tokens":
+                self.ex.stats.spec_rolled_back_tokens,
+            "spec_verify_passes": self.ex.stats.spec_verify_passes,
         }
+        if self.spec is not None:
+            out["draft"] = self.spec.stats_dict()
+        if self._paged:
+            # pool residency, fault / eviction traffic and prefix hits
+            out["paged_kv"] = self.kv.stats_dict()
+            out["page_faults"] = self.ex.stats.page_faults
+            out["demanded_page_bytes"] = self.ex.stats.demanded_page_bytes
+        return out

@@ -22,7 +22,7 @@ from typing import List, Tuple
 PRIORITY = {"attn": 0, "kv": 1, "mamba": 2, "ffn": 2, "moe": 2, "out": 3,
             "embed": 3, "vision": 1, "moe_router": 0, "moe_expert": 2,
             # paged-KV block restores (DESIGN.md §12): synthetic demand-only
-            # shards the executor fabricates per fault — never planned, so
+            # entries the executor makes per layer's faults — never planned, so
             # they share the kv pin priority but stay out of STREAMABLE_KINDS
             "kv_page": 1}
 

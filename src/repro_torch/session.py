@@ -14,8 +14,12 @@ planning-only sessions never allocate weights.
 
 The port serves dense and MoE decoders greedily with bf16 weights, or with
 grouped int8 / packed int4 FFN and expert weights (``cfg.weight_quant``) or
-per-expert int8 experts (``cfg.expert_quant``), and stacked KV, on the CUDA
-card unless the caller passes ``device="cpu"``. MoE models default to
+per-expert int8 experts (``cfg.expert_quant``), with stacked or paged KV
+(``kv_layout="paged"``: LRU offload of pages to host memory, restores on
+demand, prefix reuse) and optional speculative decoding
+(``draft_cfg=``, ``spec_k=``: a wholly pinned draft, carved out of the
+budget by the planner), on the CUDA card unless the caller passes
+``device="cpu"``. MoE models default to
 expert-granular placement: the planner pins hot experts one by one
 (routing stats seeded from the profile DB, refined online by the
 executor's EMA) and the executor streams only the cold experts the
@@ -23,7 +27,9 @@ routers select. A vlm session
 (qwen2-vl-7b's language stack) is planning-only, as in the reference: it
 builds the graph, the schedule and the estimates, and its executor,
 batcher, ``generate`` and ``serve`` raise. The reference's other options
-raise ``NotImplementedError`` naming the slice of the port they belong to.
+raise ``NotImplementedError`` naming the slice of the port they belong to
+(fault injection and the degradation ladder, with its ``spec_off`` rung;
+the gateway).
 """
 from __future__ import annotations
 
@@ -34,10 +40,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import (SYSTEMS, InferenceSetting, PipelinedExecutor,
-                              Schedule, ScheduleDiff, SystemConfig,
-                              TimingEstimator, build_graph, build_schedule,
-                              estimate_tps, estimate_ttft, run_install)
+                              Schedule, ScheduleDiff, SpecDecoder,
+                              SystemConfig, TimingEstimator, build_graph,
+                              build_schedule, choose_spec_k,
+                              estimate_spec_tps, estimate_tps, estimate_ttft,
+                              plan_draft_carve, run_install)
+from repro_torch.core.costmodel import kv_block_bytes
 from repro_torch.core.executor import resolve_prefill_mode
+from repro_torch.core.kvpaged import PAGE_SIZE
 from repro_torch.core.planner import TIERS
 from repro_torch.core.serving import ContinuousBatcher, Request
 from repro_torch.device import resolve_device
@@ -61,21 +71,48 @@ class Session:
                  prefill_mode: Optional[str] = None, device=None,
                  expert_granular: Optional[bool] = None,
                  kv_layout: Optional[str] = None,
-                 draft_cfg=None, spec_k: int = 0, faults=None):
+                 kv_page_size: Optional[int] = None,
+                 kv_pool_pages: Optional[int] = None,
+                 draft_cfg=None, draft_params=None, spec_k: int = 0,
+                 sampling: str = "greedy", faults=None):
         if cfg.family not in ("dense", "moe", "vlm"):
             _not_ported(f"family={cfg.family!r}",
                         "audio / SSM / hybrid model")
-        if kv_layout not in (None, "stacked"):
-            if kv_layout == "paged":
-                _not_ported("kv_layout='paged'", "paged-KV")
-            raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if draft_cfg is not None or spec_k:
-            _not_ported("speculative decoding (draft_cfg, spec_k)",
-                        "speculative-decoding")
         if faults is not None:
             _not_ported("fault injection (faults)", "faults")
         if prefill_mode not in (None, "layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        if kv_layout not in (None, "stacked", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        # speculative decoding: the reference's raise-early contracts — a
+        # combination that would silently give other tokens fails here
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k > 0 and sampling != "greedy":
+            raise ValueError(
+                f"spec_k={spec_k} requires greedy sampling (got "
+                f"sampling={sampling!r}): longest-prefix acceptance is "
+                "defined against the target's argmax")
+        if sampling != "greedy":
+            raise ValueError(f"sampling={sampling!r} is not supported "
+                             "(only 'greedy')")
+        if spec_k > 0 and draft_cfg is None:
+            raise ValueError("spec_k > 0 needs a draft model "
+                             "(Session.open(draft_cfg=...))")
+        if draft_cfg is not None:
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft/target vocab mismatch: draft {draft_cfg.name} "
+                    f"has vocab={draft_cfg.vocab}, target {cfg.name} has "
+                    f"vocab={cfg.vocab}: the draft's token ids would not "
+                    "mean the same strings")
+            if draft_cfg.tokenizer is not None and cfg.tokenizer is not None \
+                    and draft_cfg.tokenizer != cfg.tokenizer:
+                raise ValueError(
+                    f"draft/target tokenizer mismatch: draft uses "
+                    f"{draft_cfg.tokenizer!r}, target uses "
+                    f"{cfg.tokenizer!r}: equal vocab sizes do not make the "
+                    "id spaces compatible across tokenizers")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.system = system
@@ -85,7 +122,13 @@ class Session:
         self.tiers = tiers
         self.overlap = overlap
         self.prefill_mode = prefill_mode
-        self.kv_layout = "stacked"
+        self.kv_layout = kv_layout or "stacked"
+        self.kv_page_size = int(kv_page_size) if kv_page_size else None
+        self.kv_pool_pages = kv_pool_pages
+        self.sampling = sampling
+        self.draft_cfg = draft_cfg
+        self.spec_k = int(spec_k)
+        self._draft_params = draft_params
         self.db = db if db is not None else run_install(system,
                                                         quick=quick_install)
         self.est = TimingEstimator(self.db, system)
@@ -102,13 +145,28 @@ class Session:
         self.subs = build_graph(cfg, wdtype=wdtype,
                                 expert_granular=self.expert_granular,
                                 routing=routing)
-        self.schedule: Schedule = build_schedule(budget_bytes, self.subs,
-                                                 self.est, setting, tiers)
+        # the draft carve: with speculation requested the planner first
+        # carves the draft's wholly pinned residency out of the budget and
+        # the target plans over the rest; infeasible (or spec_k = 0)
+        # leaves the target's plan at the full budget, exactly the plan of
+        # a session without a draft
+        self.draft_subs = build_graph(draft_cfg, wdtype=wdtype) \
+            if draft_cfg is not None else None
+        self.draft_schedule: Optional[Schedule] = None
+        self.draft_carve_bytes = 0
+        if self.spec_k > 0:
+            self.draft_schedule, self.draft_carve_bytes = plan_draft_carve(
+                budget_bytes, self.draft_subs, self.subs, self.est,
+                setting, tiers)
+        self.schedule: Schedule = build_schedule(
+            budget_bytes - self.draft_carve_bytes, self.subs, self.est,
+            setting, tiers, kv_page_size=self.kv_page_size or PAGE_SIZE)
         self.replan_log: List[ScheduleDiff] = []
         self._params = params
         self._executor: Optional[PipelinedExecutor] = None
         self._batcher: Optional[ContinuousBatcher] = None
         self._batcher_cfg = None   # (max_batch, fused) as requested
+        self._spec_decoder: Optional[SpecDecoder] = None
 
     # ------------------------------------------------------------ open
     @classmethod
@@ -136,6 +194,35 @@ class Session:
         return self._params
 
     @property
+    def draft_params(self):
+        """The draft's host param tree: the caller's (the target's own for
+        self-speculation), or random weights seeded with 1 — unlike the
+        target's on purpose, so a random draft disagrees with the target
+        and exercises the rollback path."""
+        if self._draft_params is None and self.draft_cfg is not None:
+            gen = torch.Generator().manual_seed(1)
+            self._draft_params = build_model(self.draft_cfg).init(gen)
+        return self._draft_params
+
+    @property
+    def spec_active(self) -> bool:
+        """True when speculation is live: requested (spec_k > 0) and the
+        current budget fits the draft wholly on the device."""
+        return self.spec_k > 0 and self.draft_schedule is not None
+
+    def spec_decoder(self, max_batch: int) -> Optional[SpecDecoder]:
+        """The session's draft runner (built on first call while
+        speculation is live; ``None`` before). It outlives a re-plan that
+        turns speculation off: only the batcher's ``spec_k`` decides
+        whether an iteration consults it."""
+        if self.spec_active and self._spec_decoder is None:
+            self._spec_decoder = SpecDecoder(
+                self.draft_cfg, self.draft_params, self.draft_schedule,
+                max_batch=max_batch, max_seq=self.max_seq,
+                device=self.device)
+        return self._spec_decoder
+
+    @property
     def executor(self) -> PipelinedExecutor:
         """The bound executor (built on first use; planning-only sessions
         never construct it)."""
@@ -147,8 +234,26 @@ class Session:
             self._executor = PipelinedExecutor(
                 self.cfg, self.params, self.schedule, max_seq=self.max_seq,
                 overlap=self.overlap, prefill_mode=self.prefill_mode,
+                kv_layout=self.kv_layout, kv_page_size=self.kv_page_size,
+                kv_pool_pages=self._effective_kv_pool_pages(),
                 device=self.device)
         return self._executor
+
+    def _effective_kv_pool_pages(self) -> Optional[int]:
+        """The page pool the executor gets: an explicit ``kv_pool_pages``
+        wins; otherwise the planner's ``Schedule.kv_pool_bytes`` in pages.
+        ``None`` (stacked layout, or a graph with no kv sub-layers) leaves
+        the executor's ample, never-evicting default."""
+        if self.kv_pool_pages is not None or self.kv_layout != "paged":
+            return self.kv_pool_pages
+        if self.schedule.kv_pool_bytes <= 0:
+            return None
+        kv_subs = [s for s in self.subs if s.kind == "kv"]
+        if not kv_subs:
+            return None
+        block = max(kv_block_bytes(s, self.schedule.kv_page_size)
+                    for s in kv_subs)
+        return max(1, self.schedule.kv_pool_bytes // block)
 
     def batcher(self, max_batch: Optional[int] = None,
                 fused: Optional[bool] = None) -> ContinuousBatcher:
@@ -233,8 +338,16 @@ class Session:
         if setting is not None:
             self.setting = setting
         self._refresh_routing_stats()
-        new = build_schedule(self.budget_bytes, self.subs, self.est,
-                             self.setting, self.tiers)
+        # re-check the draft carve under the new conditions: a shrunk
+        # budget that no longer fits the draft turns speculation off (the
+        # target re-plans at the full budget), a later growth turns it on
+        if self.spec_k > 0:
+            self.draft_schedule, self.draft_carve_bytes = plan_draft_carve(
+                self.budget_bytes, self.draft_subs, self.subs, self.est,
+                self.setting, self.tiers)
+        new = build_schedule(self.budget_bytes - self.draft_carve_bytes,
+                             self.subs, self.est, self.setting, self.tiers,
+                             kv_page_size=self.kv_page_size or PAGE_SIZE)
         diff = self.schedule.diff(new)
         if self._executor is not None:
             report = self._executor.rebind(new)
@@ -244,6 +357,9 @@ class Session:
                                    "than Schedule.diff")
         if self._batcher is not None:
             self._batcher._bind_schedule(new)
+            self._batcher._bind_spec(
+                self.spec_decoder(self._batcher.max_batch),
+                self.spec_k if self.spec_active else 0)
         self.schedule = new
         self.replan_log.append(diff)
         return diff
@@ -253,16 +369,49 @@ class Session:
         return resolve_prefill_mode(self.prefill_mode)
 
     # ------------------------------------------------------------ estimates
-    def estimates(self, isl: Optional[int] = None) -> dict:
+    def estimates(self, isl: Optional[int] = None,
+                  prefix_hit_frac: float = 0.0) -> dict:
         """Planner-side TTFT/TPS estimates for the bound conditions; the
-        TTFT model follows the session's prefill mode."""
+        TTFT model follows the session's prefill mode. ``prefix_hit_frac``
+        feeds the prefix-cache term of the TTFT model (paged sessions
+        only). A live speculative session adds a ``spec`` block: the
+        draft's step time, the acceptance rate (the executor's observed
+        one once a verify pass ran, else 0.7), the speculative tok/s and
+        the window ``choose_spec_k`` would pick."""
+        if prefix_hit_frac and self.kv_layout != "paged":
+            raise ValueError("prefix_hit_frac needs kv_layout='paged' — the "
+                             "stacked cache has no prefix cache")
         isl = isl if isl is not None else self.setting.context
-        return {"ttft_s": estimate_ttft(self.schedule, isl,
-                                        mode=self.effective_prefill_mode),
-                "tps": estimate_tps(self.schedule, self.setting.batch),
-                "pinned_bytes": self.schedule.pinned_bytes,
-                "scratch_bytes": self.schedule.scratch_bytes,
-                "kv_pool_bytes": self.schedule.kv_pool_bytes}
+        out = {"ttft_s": estimate_ttft(self.schedule, isl,
+                                       mode=self.effective_prefill_mode,
+                                       prefix_hit_frac=prefix_hit_frac),
+               "tps": estimate_tps(self.schedule, self.setting.batch),
+               "pinned_bytes": self.schedule.pinned_bytes,
+               "scratch_bytes": self.schedule.scratch_bytes,
+               "kv_pool_bytes": self.schedule.kv_pool_bytes}
+        if self.spec_active:
+            batch = self.setting.batch
+            draft_step_s = self.draft_schedule.time_for_tokens(batch)
+            a = self._observed_accept_rate(default=0.7)
+            out["spec"] = {
+                "spec_k": self.spec_k,
+                "draft_carve_bytes": self.draft_carve_bytes,
+                "draft_step_s": draft_step_s,
+                "accept_rate": a,
+                "spec_tps": estimate_spec_tps(self.schedule, draft_step_s,
+                                              a, self.spec_k, batch),
+                "chosen_k": choose_spec_k(self.schedule, draft_step_s, a,
+                                          batch=batch),
+            }
+        return out
+
+    def _observed_accept_rate(self, default: float = 0.7) -> float:
+        """The executor's measured acceptance rate, or ``default`` before
+        any speculative iteration ran."""
+        if self._executor is not None \
+                and self._executor.stats.spec_drafted > 0:
+            return self._executor.stats.accept_rate
+        return default
 
     def stats(self) -> dict:
         """Lifecycle stats: planning + (if built) executor + batcher."""
@@ -274,7 +423,10 @@ class Session:
                "pinned_bytes": self.schedule.pinned_bytes,
                "scratch_bytes": self.schedule.scratch_bytes,
                "kv_layout": self.kv_layout,
-               "kv_pool_bytes": self.schedule.kv_pool_bytes}
+               "kv_pool_bytes": self.schedule.kv_pool_bytes,
+               "spec_k": self.spec_k,
+               "spec_active": self.spec_active,
+               "draft_carve_bytes": self.draft_carve_bytes}
         if self._executor is not None:
             ex = self._executor.stats
             pf = ex.prefill_stats
@@ -309,6 +461,11 @@ class Session:
                     "demanded_expert_bytes": ex.demanded_expert_bytes,
                     "resident_expert_bytes": ex.resident_expert_bytes,
                 })
+            if self.kv_layout == "paged":
+                out["executor"].update({
+                    "page_faults": ex.page_faults,
+                    "demanded_page_bytes": ex.demanded_page_bytes,
+                })
         if self._batcher is not None:
             out["serving"] = self._batcher.stats()
         return out
@@ -320,6 +477,7 @@ class Session:
         self._batcher = None
         self._batcher_cfg = None
         self._executor = None
+        self._spec_decoder = None
 
     def __enter__(self) -> "Session":
         return self

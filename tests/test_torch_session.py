@@ -338,8 +338,10 @@ def test_open_without_cuda_raises(model, dbs, monkeypatch):
     # the reference's conflict error instead
     ("expert_granular", dict(expert_granular=True), ValueError,
      "requires an MoE config"),
-    ("paged", dict(kv_layout="paged"), NotImplementedError, "slice"),
-    ("speculative", dict(spec_k=2), NotImplementedError, "slice"),
+    # paged KV and speculative decoding are ported: their options raise
+    # the reference's validation errors instead
+    ("paged", dict(kv_layout="ring"), ValueError, "kv_layout"),
+    ("speculative", dict(spec_k=2), ValueError, "draft"),
     ("fault", dict(faults=object()), NotImplementedError, "slice"),
 ])
 def test_unported_options_name_their_slice(model, dbs, option, kw, error,
