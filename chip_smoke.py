@@ -143,18 +143,47 @@ Phases (each raises on failure; the last line is printed only if all pass):
    peak within the bound with the draft's pins, cache and head counted,
    self-speculation's acceptance above 0.6; tok/s and TTFT of each
    speculative run and its plain twin printed; K1's launches, all on the
-   tensor cores.
+   tensor cores;
+14. faults and the degradation ladder, each faulted run under a
+   wall-clock guard, its tokens against its undisturbed twin, its ledger
+   exact (under the plan of each pass's time) and its peak gated (after
+   a rung, under the new plan's bound; the card's reserved bytes printed
+   before and after each rung): qwen2-0.5b with phase 3's weights at 0.1x
+   under an empty plan (tokens, ledger and K1 launches equal phase 3's),
+   ``prefetch.copy`` fail x2 (retried), fail x4 on one sub-layer (one sync
+   fallback), delay, ``prefetch.worker`` crash (the watchdog's ``sync``
+   rung), ``alloc.device`` at a decode pass (``tier_down``) and
+   ``serving.request`` on rid 2 (it fails alone); phase 12's 64-page
+   paged run under ``alloc.host`` (the pool consistent after); phase 11's
+   qwen30b-a3b granular at 0.1x under ``demand.copy`` fail x20,
+   ``demand.timeout`` and ``demand.worker`` crash (tokens and ledger equal
+   phase 11's) and ``alloc.device`` (``expert_shrink``); phase 13's
+   qwen3-14b speculative run at 0.5x under ``alloc.device`` at a verify
+   pass (``spec_off``: tokens equal plain greedy, the draft gone);
+15. the gateway: qwen2-0.5b at 0.1x behind ``Session.gateway(max_batch=4,
+   max_queue=16)`` through ``InprocClient``, 8 streamed requests of 64
+   prompt tokens and 16 new ones, 10 ms apart, with queue-aware tier
+   picks on and off: SSE tokens equal a direct serve of the same
+   requests, the first chunk before the first completion, the broker
+   ledger reconciled, unary equal to stream; TTFT p50 / p99 and aggregate
+   tok/s against the direct batcher printed; a ``gateway.pump`` fault
+   fails the active tickets only; ``/admin/rebudget`` 0.1x -> 0.5x
+   mid-wave (moved bytes equal ``Schedule.diff``); a client disconnecting
+   mid-stream from the 64-page paged session frees its pages; ``/healthz``
+   reports the rung after an ``alloc.device``.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import asyncio
 import functools
 import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1041,14 +1070,18 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
-def expected_streamed_by_dtype(ex):
+def expected_streamed_by_dtype(ex, segments=None):
     """The ledger, by storage format (``meta["quant"]``): every pass
     streams exactly its tier plan's streamed placements that are not
-    pinned."""
+    pinned. ``segments``: for a run whose plan changed mid-serve (a
+    degradation rung), ``(first pass, schedule, pinned names)`` from each
+    change on; else the executor's schedule and pins throughout."""
+    segments = segments or [(0, ex.schedule, set(ex._pinned))]
     out = {}
-    pinned = set(ex._pinned)
-    for t in ex.stats.tiers_used:
-        for p in ex.schedule.tiers[t].plan.static_stream_order():
+    for i, t in enumerate(ex.stats.tiers_used):
+        _, schedule, pinned = max((seg for seg in segments if seg[0] <= i),
+                                  key=lambda seg: seg[0])
+        for p in schedule.tiers[t].plan.static_stream_order():
             if p.sub.name not in pinned:
                 q = p.sub.meta.get("quant", "fp16")
                 out[q] = out.get(q, 0) + p.sub.weight_bytes
@@ -1067,7 +1100,7 @@ def kv_device_bytes(sess):
         * cfg.resolved_head_dim * 2
 
 
-def memory_bound(sess):
+def memory_bound(sess, tiers=None):
     """Peak device bytes the plan allows, with everything the executor
     keeps outside the planned budget counted in. For MoE: the at-use term
     covers the router, expert and whole-MoE sub-layers, and the (E, C, d)
@@ -1089,7 +1122,9 @@ def memory_bound(sess):
     if set(ex._pinned) != {pl.sub.name for pl in placements}:
         raise AssertionError(f"executor pins {sorted(ex._pinned)}, the "
                              f"schedule {[pl.sub.name for pl in placements]}")
-    tiers = set(ex.stats.tiers_used) or set(sess.schedule.tiers)
+    # the tiers the run used (``tiers``: those used since a rung)
+    tiers = set(ex.stats.tiers_used if tiers is None else tiers) \
+        or set(sess.schedule.tiers)
     scratch = max(sess.schedule.tiers[t].scratch_bytes for t in tiers)
     at_use = max(groups_nbytes(ex._subtree(s)) for s in sess.subs
                  if s.kind in ("attn", "ffn", "moe", "moe_router",
@@ -1119,12 +1154,13 @@ def memory_bound(sess):
 def serve_once(cfg, params, db, system, budget, *, overlap=True,
                fused=True, prefill_mode=None, rebudget_to=None,
                rebudget_after=2, n_req=N_REQ, new_tokens=NEW_TOKENS,
-               requests=None, **open_kw):
+               requests=None, on_open=None, **open_kw):
     """One Session.open -> serve run at ``budget``. ``requests``: a
     function making the wave (fresh Request objects), else ``n_req``
     random prompts of PROMPT_LEN tokens; ``open_kw`` go to Session.open
     (expert_granular, kv_layout, kv_pool_pages, draft_cfg, draft_params,
-    spec_k)."""
+    spec_k, faults, recovery); ``on_open(sess)`` runs once the executor
+    and the batcher are built, before the first request."""
     import torch
     from repro_torch import Session
     from repro_torch.core import InferenceSetting, random_requests
@@ -1139,6 +1175,8 @@ def serve_once(cfg, params, db, system, budget, *, overlap=True,
     # build the executor (weights placed on the card) before the requests
     # arrive, so TTFT counts serving and not set-up
     batcher = sess.batcher(max_batch=MAX_BATCH, fused=fused)
+    if on_open is not None:
+        on_open(sess)
     torch.cuda.synchronize()
     reqs = requests() if requests is not None else \
         random_requests(cfg.vocab, n_req, PROMPT_LEN, new_tokens, seed=0)
@@ -1308,7 +1346,9 @@ def main_path():
     # ---- phase 3: the main path, launches counted over exactly this run
     reset_launches()
     for frac in BUDGETS:
+        k1_before = read_launches()["K1"]
         run = serve_once(cfg, params, db, system, int(total * frac))
+        run["k1"] = read_launches()["K1"] - k1_before
         rows.append(summarise(f"{frac}x", run))
         ex = run["sess"].executor
         want = sum(expected_streamed_by_dtype(ex).values())
@@ -1395,7 +1435,10 @@ def main_path():
     return {"rows": rows, "launches": main_launches, "variants": variants,
             "link_gbps": link,
             "profile": prof, "quant": quant, "paged": paged,
-            "model": (cfg, params)}
+            "model": (cfg, params),
+            "base_01": {k: runs[0.1][k] for k in ("tokens", "k1",
+                                                  "streamed_bytes")},
+            "setup": (db, system, total)}
 
 
 KERNEL_OF = {"int8": "K2", "int4": "K3"}
@@ -2549,6 +2592,11 @@ def moe_path(link):
             "teacher_forced_gap": qgap}
         del qparams
         free_cuda()
+    # ---- phase 14, MoE: faults on phase 11's weights and wave, last: a
+    # re-plan folds the routing EMA into its profile DB, a fresh one here
+    out["faults"] = moe_fault_runs(
+        cfg, params, run_install(system), system, tot, base,
+        rows[("granular", 0.1)]["streamed_bytes"])
     del params
     free_cuda()
     return out
@@ -2791,11 +2839,655 @@ def spec_path(link, draft_cfg, draft_params):
     log(f"K1 launches on the spec path: {launches['K1']} by the target and "
         f"{launches['draft']} by the draft, in the speculative runs alone, "
         f"each > 0, all mma (by kernel {variants})")
+    # ---- phase 14, speculative: spec_off under an alloc.device
+    fault = spec_fault_run(cfg, params, db, system, total, draft,
+                           plain["tokens"])
     del params
     free_cuda()
     return {"rows": rows, "verify": verify, "launches": launches["K1"],
             "draft_launches": launches["draft"], "variants": variants,
-            "layers": cfg.n_layers, "weight_bytes": total}
+            "layers": cfg.n_layers, "weight_bytes": total, "faults": fault}
+
+
+# ------------------------------------------------------------ phase 14
+# a faulted run still going after this many seconds fails the phase
+FAULT_WALL_S = 300.0
+
+
+def guarded(tag, fn, seconds=FAULT_WALL_S, grace=30.0):
+    """``fn()`` under a wall-clock guard. It runs on this thread, where
+    the earlier phases served (a thread of its own would bring its own
+    cuBLAS handle and 32 MiB workspace into the peak); a watchdog thread
+    interrupts it after ``seconds`` and the interrupt is raised as a
+    ``TimeoutError``, so a hang fails the phase. A hang the interrupt
+    cannot reach (inside a CUDA call) ends the process with exit code 3
+    after ``grace`` seconds more, so the script never stalls."""
+    import os
+    import signal
+    done, fired = threading.Event(), []
+    main = threading.main_thread().ident
+
+    def watchdog():
+        if done.wait(seconds):
+            return
+        fired.append(True)
+        log(f"{tag}: still running after {seconds:.0f} s (the wall-clock "
+            "guard); interrupting")
+        # a real signal: it also wakes a wait on a lock or an event
+        signal.pthread_kill(main, signal.SIGINT)
+        if not done.wait(grace):
+            log(f"{tag}: the interrupt did not land in {grace:.0f} s; "
+                "exiting")
+            os._exit(3)
+
+    threading.Thread(target=watchdog, name=f"guard {tag}",
+                     daemon=True).start()
+    try:
+        return fn()
+    except KeyboardInterrupt:
+        if fired:
+            raise TimeoutError(f"{tag}: still running after {seconds:.0f} s "
+                               "(the wall-clock guard)") from None
+        raise
+    finally:
+        done.set()
+
+
+class RungWatch:
+    """Watches a session's ladder (``on_open`` of ``serve_once``): at each
+    rung ``degrade`` applies it gates the peak so far against the plan
+    before the rung, prints the card's reserved bytes before and after
+    the rung (which releases cached blocks), records where the plan
+    changed (for the ledger) and resets the peak, so the run's peak is the
+    one under the plan after the last rung."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        self.rungs = []
+        self.segments = None
+
+    def __call__(self, sess):
+        import torch
+        from repro_torch.core import DEGRADATION_RUNGS
+        ex = sess.executor
+        self.segments = [(0, sess.schedule, set(ex._pinned))]
+        degrade = sess.degrade
+
+        def watched(reason=""):
+            used = ex.stats.tiers_used[self.segments[-1][0]:]
+            lim, _ = memory_bound(sess, tiers=used)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            before = torch.cuda.memory_reserved()
+            level = degrade(reason=reason)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_reserved()
+            if level is None:
+                return level
+            rung = DEGRADATION_RUNGS[level]
+            n = len(ex.stats.tiers_used)
+            log(f"  {self.tag}: rung {rung} (level {level}) after pass {n}: "
+                f"peak before it {peak} B <= bound {lim} B; reserved "
+                f"{before} -> {after} B")
+            if peak > lim:
+                raise AssertionError(f"{self.tag}: peak {peak} > {lim} "
+                                     "before the rung")
+            self.rungs.append({"level": level, "rung": rung, "pass": n,
+                               "peak_before": peak, "bound_before": lim,
+                               "reserved_before": before,
+                               "reserved_after": after})
+            self.segments.append((n, sess.schedule, set(ex._pinned)))
+            torch.cuda.reset_peak_memory_stats()
+            return level
+
+        sess.degrade = watched
+
+
+def fault_gates(tag, run, watch, want_tokens, skip_rids=()):
+    """One faulted run's gates: the tokens of every request not in
+    ``skip_rids`` equal ``want_tokens``; the ledger is exact (each pass
+    streams its plan's placements under the plan of its time, plus the
+    demanded experts and pages); the peak since the last rung (the whole
+    run without one) is within the bound of the plan then. Returns the
+    row: counters, rungs, peak and bound."""
+    sess = run["sess"]
+    ex = sess.executor
+    for i, (got, want) in enumerate(zip(run["tokens"], want_tokens)):
+        if i not in skip_rids and got != want:
+            raise AssertionError(f"{tag}: request {i}'s tokens differ from "
+                                 "the undisturbed run's")
+    by = dict(ex.stats.streamed_bytes_by_dtype)
+    want = expected_streamed_by_dtype(ex, watch.segments)
+    if ex.stats.demanded_expert_bytes:
+        q = next(s.meta["quant"] for s in sess.subs
+                 if s.kind == "moe_expert")
+        want[q] = want.get(q, 0) + ex.stats.demanded_expert_bytes
+    if ex.stats.demanded_page_bytes:
+        want["kv"] = ex.stats.demanded_page_bytes
+    if by != want or sum(by.values()) != ex.stats.streamed_bytes:
+        raise AssertionError(f"{tag}: streamed by dtype {by} != the plans' "
+                             f"+ demanded {want}")
+    lim, parts = memory_bound(sess,
+                              tiers=ex.stats.tiers_used[watch.segments[-1][0]:])
+    if run["peak"] > lim:
+        raise AssertionError(f"{tag}: peak {run['peak']} > {lim}")
+    deg = sess.degradation()
+    keys = ("copy_retries", "copy_failures", "worker_crashes",
+            "demand_timeouts", "sync_fallbacks", "alloc_failures",
+            "degraded_sync")
+    row = {k: deg[k] for k in keys}
+    row.update({"rung": deg["rung"], "level": deg["level"],
+                "rungs": [e["rung"] for e in deg["log"]],
+                "fired": deg["injected"]["fired"],
+                "streamed_bytes": ex.stats.streamed_bytes,
+                "abandoned": (ex.prefetch.stats.abandoned
+                              if ex.prefetch is not None else 0),
+                "peak": run["peak"], "bound": lim, "wall_s": run["wall"],
+                "rung_memory": watch.rungs})
+    log(f"{tag}: tokens identical, ledger exact ({ex.stats.streamed_bytes} "
+        f"B), peak {'after the rung ' if watch.rungs else ''}{run['peak']} B "
+        f"<= bound {lim} B; rung {row['rung']} {row['rungs']}; counters "
+        f"{ {k: row[k] for k in keys} }; fired {row['fired']}")
+    return row
+
+
+def faulted(tag, serve, watch, plan_specs):
+    """Serve under a FaultPlan of ``plan_specs`` and the default recovery
+    policy (real backoff), with the ladder watched, under the wall guard;
+    returns the run with its K1 launches."""
+    from repro_torch.core import FaultPlan, RecoveryPolicy
+    k1 = read_launches()["K1"]
+    run = guarded(tag, lambda: serve(faults=FaultPlan(plan_specs),
+                                     recovery=RecoveryPolicy(),
+                                     on_open=watch))
+    run["k1"] = read_launches()["K1"] - k1
+    return run
+
+
+def want_counts(tag, row, **want):
+    got = {k: row[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: {got} != {want}")
+
+
+def streamed_key(schedule):
+    """A sub-layer the static pool streams in the first pass of the wave
+    (the first admission's layer-major prefill): a key whose fault fires
+    on the first stagings."""
+    pinned = {pl.sub.name for pl in schedule.pinned_placements()}
+    tier = schedule.pick_prefill_tier(PROMPT_LEN, min_tier=1)
+    return next(p.sub.name for p in
+                schedule.tiers[tier].plan.static_stream_order()
+                if p.sub.name not in pinned)
+
+
+def fault_path(cfg, params, db, system, total, base):
+    """Phase 14, dense and paged: qwen2-0.5b with phase 3's weights at
+    0.1x, 4 x (64 + 16), ``max_batch=4``, under each fault plan, each run
+    against phase 3's 0.1x run (``base``: its tokens, streamed bytes and
+    K1 launches); then phase 12's 64-page paged run under ``alloc.host``."""
+    from repro_torch import Session
+    from repro_torch.core import FaultSpec, InferenceSetting, RecoveryPolicy
+    budget = int(total * 0.1)
+    retries = RecoveryPolicy().max_copy_retries
+    key = streamed_key(Session.open(
+        cfg, system=system, budget_bytes=budget,
+        setting=InferenceSetting(batch=MAX_BATCH, context=MAX_SEQ), db=db,
+        max_seq=MAX_SEQ).schedule)
+    serve = functools.partial(serve_once, cfg, params, db, system, budget)
+    cases = [
+        ("empty plan", [], {}),
+        ("prefetch.copy fail x2",
+         [FaultSpec("prefetch.copy", "fail", count=2)],
+         dict(copy_retries=2, copy_failures=0, sync_fallbacks=0)),
+        (f"prefetch.copy fail x{retries + 1} on {key}",
+         [FaultSpec("prefetch.copy", "fail", count=retries + 1, key=key)],
+         dict(copy_retries=retries, copy_failures=1, sync_fallbacks=1)),
+        ("prefetch.copy delay 5 ms x8",
+         [FaultSpec("prefetch.copy", "delay", delay_s=0.005, count=8)],
+         dict(copy_failures=0, sync_fallbacks=0)),
+        ("prefetch.worker crash at item 2",
+         [FaultSpec("prefetch.worker", "crash", after=1)],
+         dict(worker_crashes=1, degraded_sync=True, rung="sync")),
+        ("alloc.device oom at decode pass 3",
+         [FaultSpec("alloc.device", "oom", key="decode", after=2)],
+         dict(alloc_failures=1, rungs=["tier_down"])),
+        ("serving.request fail rid 2",
+         [FaultSpec("serving.request", "fail", key="2", after=1)],
+         dict(rungs=[], level=0)),
+    ]
+    rows = {}
+    reset_launches()
+    for name, specs, want in cases:
+        tag = f"faults qwen2-0.5b 0.1x, {name}"
+        watch = RungWatch(tag)
+        run = faulted(tag, serve, watch, specs)
+        skip = (2,) if name.startswith("serving.request") else ()
+        row = fault_gates(tag, run, watch, base["tokens"], skip)
+        want_counts(tag, row, **want)
+        row["k1"] = run["k1"]
+        if not specs and (run["k1"], row["streamed_bytes"], row["fired"]) \
+                != (base["k1"], base["streamed_bytes"], {}):
+            raise AssertionError(f"{tag}: K1 {run['k1']} (phase 3: "
+                                 f"{base['k1']}), streamed "
+                                 f"{row['streamed_bytes']} (phase 3: "
+                                 f"{base['streamed_bytes']})")
+        if skip:
+            reqs, srv = run["reqs"], run["sess"].stats()["serving"]
+            if reqs[2].error is None or srv["failed"] != 1 \
+                    or len(reqs[2].generated) >= NEW_TOKENS:
+                raise AssertionError(f"{tag}: rid 2 did not fail alone: "
+                                     f"{srv['failed']} failed")
+            row["rid2_tokens_before_error"] = len(reqs[2].generated)
+            log(f"  rid 2 failed alone after {len(reqs[2].generated)} "
+                "tokens; rids 0, 1, 3 identical to phase 3")
+        elif not watch.rungs \
+                and row["streamed_bytes"] != base["streamed_bytes"]:
+            raise AssertionError(f"{tag}: streamed {row['streamed_bytes']} "
+                                 f"!= phase 3's {base['streamed_bytes']}")
+        if not specs:
+            log(f"  empty plan == phase 3 at 0.1x: tokens, ledger "
+                f"({row['streamed_bytes']} B) and K1 launches ({run['k1']})")
+        rows[name] = row
+        run["sess"].close()
+        del run
+    counts, variants = read_launches(), read_variants()
+    if counts["K1"] <= 0 or variants["K1"] != {"mma": counts["K1"],
+                                               "fma": 0} \
+            or (counts["K2"], counts["K3"], counts["K4"]) != (0, 0, 0):
+        raise AssertionError(f"faults: launches {counts} by kernel "
+                             f"{variants}")
+    launches = counts["K1"]
+
+    # phase 12's 64-page paged run under an alloc.host fault at a decode
+    # pass's page preparation
+    tag = f"faults qwen2-0.5b paged {FORCED_POOL} pages 0.1x, alloc.host oom"
+    watch = RungWatch(tag)
+    reset_launches()
+    run = faulted(tag, functools.partial(serve, kv_layout="paged",
+                                         kv_pool_pages=FORCED_POOL),
+                  watch, [FaultSpec("alloc.host", "oom", after=5)])
+    row = fault_gates(tag, run, watch, base["tokens"])
+    want_counts(tag, row, rungs=["tier_down"])
+    alloc = run["sess"]._batcher.kv.alloc
+    alloc.check()
+    resident = [b.pid for b in alloc.blocks.values() if b.pid >= 0]
+    if len(alloc.free) + len(set(resident)) != alloc.n_pages - 1 \
+            or len(resident) != len(set(resident)):
+        raise AssertionError(f"{tag}: pool inconsistent")
+    log(f"  pool consistent: free {len(alloc.free)} + mapped "
+        f"{len(resident)} == pool {alloc.n_pages - 1}, no page mapped "
+        "twice")
+    counts = read_launches()
+    row["k1"] = counts["K1"]
+    launches += counts["K1"]
+    rows["paged alloc.host"] = row
+    run["sess"].close()
+    del run
+    free_cuda()
+    log(f"K1 launches on the faulted qwen2-0.5b runs: {launches}, all mma")
+    return {"rows": rows, "launches": launches, "key": key}
+
+
+def moe_fault_runs(cfg, params, db, system, tot, base_tokens,
+                   base_streamed):
+    """Phase 14, MoE: phase 11's qwen30b-a3b (its weights and wave),
+    granular at 0.1x, under demand faults and an ``alloc.device``. ``db``
+    is this phase's own: ``expert_shrink`` re-plans, and a re-plan writes
+    the routing EMA into the profile DB, which would move later plans."""
+    from repro_torch.core import FaultSpec
+    serve = functools.partial(serve_once, cfg, params, db, system,
+                              int(tot[True] * 0.1), expert_granular=True)
+    cases = [
+        ("demand.copy fail x20", [FaultSpec("demand.copy", "fail",
+                                            count=20)],
+         dict(copy_failures=5, sync_fallbacks=5)),
+        ("demand.timeout x1", [FaultSpec("demand.timeout", "timeout")],
+         dict(demand_timeouts=1, sync_fallbacks=1, abandoned=1)),
+        ("demand.worker crash", [FaultSpec("demand.worker", "crash")],
+         dict(worker_crashes=1, degraded_sync=True, rung="sync")),
+        ("alloc.device oom at decode pass 3",
+         [FaultSpec("alloc.device", "oom", key="decode", after=2)],
+         dict(alloc_failures=1, rungs=["expert_shrink"])),
+    ]
+    rows = {}
+    reset_launches()
+    for name, specs, want in cases:
+        tag = f"faults {MOE_ARCH} granular 0.1x, {name}"
+        watch = RungWatch(tag)
+        run = faulted(tag, serve, watch, specs)
+        row = fault_gates(tag, run, watch, base_tokens)
+        want_counts(tag, row, **want)
+        if not watch.rungs and row["streamed_bytes"] != base_streamed:
+            raise AssertionError(f"{tag}: streamed {row['streamed_bytes']} "
+                                 f"!= phase 11's {base_streamed}")
+        row["k1"] = run["k1"]
+        rows[name] = row
+        del run["sess"]
+        free_cuda()
+    counts = read_launches()
+    if counts["K1"] <= 0 or (counts["K2"], counts["K3"], counts["K4"]) \
+            != (0, 0, 0):
+        raise AssertionError(f"moe faults: launches {counts}")
+    log(f"K1 launches on the faulted {MOE_ARCH} runs: {counts['K1']}")
+    return {"rows": rows, "launches": counts["K1"]}
+
+
+def spec_fault_run(cfg, params, db, system, total, draft, plain_tokens):
+    """Phase 14, speculative: phase 13's qwen3-14b 0.5x stacked run with
+    its qwen2-0.5b draft under an ``alloc.device`` at a verify pass: the
+    rung is ``spec_off``, the draft goes and its memory with it."""
+    from repro_torch.core import FaultSpec
+    tag = f"faults {SPEC_ARCH} spec 0.5x, alloc.device oom at verify 2"
+    watch = RungWatch(tag)
+    reset_launches()
+    run = faulted(tag, functools.partial(
+        serve_once, cfg, params, db, system, int(total * 0.5),
+        kv_layout="stacked", **draft), watch,
+        [FaultSpec("alloc.device", "oom", key="verify", after=1)])
+    row = fault_gates(tag, run, watch, plain_tokens)
+    want_counts(tag, row, alloc_failures=1, rungs=["spec_off"])
+    sess = run["sess"]
+    if sess.draft_carve_bytes or sess.spec_active \
+            or sess._spec_decoder is not None \
+            or sess._batcher.spec is not None:
+        raise AssertionError(f"{tag}: the draft survived spec_off")
+    row["k1"] = read_launches()["K1"]
+    log(f"  spec_off: draft carve 0, draft dropped, tokens == plain greedy; "
+        f"K1 launches {row['k1']}")
+    sess.close()
+    del run
+    free_cuda()
+    return row
+
+
+# ------------------------------------------------------------ phase 15
+GW_REQ, GW_GAP_S, GW_QUEUE = 8, 0.010, 16
+
+
+def gateway_wave(vocab):
+    """GW_REQ prompts of PROMPT_LEN tokens, NEW_TOKENS each."""
+    import numpy as np
+    from repro_torch.core.serving import Request
+    rng = np.random.RandomState(3)
+    return [Request(rid=i, prompt=rng.randint(0, vocab, size=PROMPT_LEN)
+                    .astype(np.int32), max_new_tokens=NEW_TOKENS)
+            for i in range(GW_REQ)]
+
+
+def chat_body(cfg, req, stream):
+    return json.dumps({"model": cfg.name,
+                       "token_ids": [int(t) for t in req.prompt],
+                       "max_tokens": req.max_new_tokens,
+                       "stream": stream}).encode()
+
+
+async def sse_request(client, cfg, req, stop_after=None):
+    """One streamed chat completion: (tokens, error message or None).
+    ``stop_after``: read that many events, then disconnect."""
+    from repro_torch.gateway import parse_stream
+    st, _, end = await client.open_stream("POST", "/v1/chat/completions",
+                                          chat_body(cfg, req, True))
+    if st != 200:
+        raise AssertionError(f"request {req.rid}: status {st}")
+    if stop_after is not None:
+        for _ in range(stop_after):
+            await end.reader.readuntil(b"\n\n")
+        end.close()
+        return None, "disconnected"
+    raw = await end.reader.read()
+    end.close()
+    chunks, done = parse_stream(raw)
+    err = next((c["error"]["message"] for c in chunks if "error" in c), None)
+    toks = [c["choices"][0]["delta"]["token_id"] for c in chunks
+            if "choices" in c]
+    if err is None and not done:
+        raise AssertionError(f"request {req.rid}: stream ended early")
+    return toks, err
+
+
+async def drive_wave(gw, cfg, reqs, during=None):
+    """``reqs`` streamed through ``gw``, GW_GAP_S apart; ``during(client)``
+    runs once all are sent. Returns ({rid: (tokens, error)}, wall s from
+    the first request to the last answer, what ``during`` returned)."""
+    from repro_torch.gateway import InprocClient
+    c = InprocClient(gw)
+    t0 = time.perf_counter()
+    tasks = []
+    for r in reqs:
+        tasks.append(asyncio.ensure_future(sse_request(c, cfg, r)))
+        await asyncio.sleep(GW_GAP_S)
+    extra = await during(c) if during is not None else None
+    res = await asyncio.gather(*tasks)
+    return ({r.rid: x for r, x in zip(reqs, res)},
+            time.perf_counter() - t0, extra)
+
+
+def open_session(cfg, params, db, system, budget, **kw):
+    from repro_torch import Session
+    from repro_torch.core import InferenceSetting
+    free_cuda()
+    return Session.open(cfg, system=system, budget_bytes=budget,
+                        setting=InferenceSetting(batch=MAX_BATCH,
+                                                 context=MAX_SEQ),
+                        db=db, params=params, max_seq=MAX_SEQ, **kw)
+
+
+def gateway_path(cfg, params, db, system, total):
+    """Phase 15: qwen2-0.5b at 0.1x behind ``Session.gateway`` through
+    ``InprocClient``: GW_REQ streamed requests GW_GAP_S apart against a
+    direct ``serve`` of the same requests."""
+    from repro_torch.core import FaultPlan, FaultSpec, RecoveryPolicy
+    from repro_torch.gateway import InprocClient
+    budget = int(total * 0.1)
+    wave = functools.partial(gateway_wave, cfg.vocab)
+    direct = guarded("gateway direct serve", lambda: serve_once(
+        cfg, params, db, system, budget, requests=wave))
+    want = {r.rid: list(r.generated) for r in direct["reqs"]}
+    n_tok = sum(len(t) for t in want.values())
+    direct_tps = n_tok / direct["wall"]
+    direct_ttft = direct["sess"].stats()["serving"]["mean_ttft_s"]
+    direct["sess"].close()
+    del direct
+    out = {"direct_tps": direct_tps, "direct_mean_ttft_s": direct_ttft,
+           "runs": {}}
+
+    def same(tag, got, rids=None):
+        for rid in (want if rids is None else rids):
+            toks, err = got[rid]
+            if err is not None or toks != want[rid]:
+                raise AssertionError(f"{tag}: request {rid} got {toks} "
+                                     f"({err}), the direct serve "
+                                     f"{want[rid]}")
+
+    reset_launches()
+    for qa in (True, False):
+        tag = f"gateway qwen2-0.5b 0.1x queue_aware={qa}"
+        sess = open_session(cfg, params, db, system, budget)
+
+        async def main():
+            gw = sess.gateway(max_batch=MAX_BATCH, max_queue=GW_QUEUE,
+                              queue_aware=qa).start()
+            got, wall, _ = await drive_wave(gw, cfg, wave())
+            m = gw.metrics()
+            first = (gw._first_chunk_at, gw._first_done_at)
+            st, _, b = await InprocClient(gw).request(
+                "POST", "/v1/chat/completions", chat_body(cfg, wave()[0],
+                                                          False))
+            await gw.close(drain=True)
+            return got, wall, m, first, st, json.loads(b)
+
+        got, wall, m, (fc, fd), st, unary = guarded(
+            tag, lambda: asyncio.run(main()))
+        same(tag, got)
+        if not (fc is not None and fd is not None and fc < fd):
+            raise AssertionError(f"{tag}: first chunk at {fc}, first "
+                                 f"completion at {fd}")
+        led = m["broker"]["ledger"]
+        if not m["broker"]["reconciles"] or led["completed"] != GW_REQ:
+            raise AssertionError(f"{tag}: ledger {led}")
+        if st != 200 or unary["choices"][0]["token_ids"] != got[0][0]:
+            raise AssertionError(f"{tag}: unary {st} != stream")
+        tps = n_tok / wall
+        row = {"ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+               "tps": tps, "wall_s": wall, "ledger": led,
+               "first_chunk_before_first_done_s": fd - fc,
+               "tiers_used": m["serving"]["tiers_used"]}
+        out["runs"][f"queue_aware={qa}"] = row
+        log(f"{tag}: SSE tokens == direct serve for {GW_REQ} requests; "
+            f"first chunk {fd - fc:.4f} s before the first completion; "
+            f"ledger reconciles {led}; unary == stream; tiers "
+            f"{row['tiers_used']}")
+        log(f"  gateway TTFT p50 {m['ttft_p50_s']:.4f} s, p99 "
+            f"{m['ttft_p99_s']:.4f} s; aggregate {tps:.2f} tok/s over the "
+            f"gateway against {direct_tps:.2f} tok/s by the direct batcher "
+            f"(TTFT mean {direct_ttft:.4f} s)")
+        sess.close()
+    counts, variants = read_launches(), read_variants()
+    if counts["K1"] <= 0 or variants["K1"] != {"mma": counts["K1"],
+                                               "fma": 0} \
+            or (counts["K2"], counts["K3"], counts["K4"]) != (0, 0, 0):
+        raise AssertionError(f"gateway: launches {counts} by kernel "
+                             f"{variants}")
+    out["launches"] = counts["K1"]
+    log(f"K1 launches on the gateway path: {counts['K1']} (by kernel "
+        f"{variants['K1']})")
+
+    # a gateway.pump fault: the active tickets fail, the queued ones serve
+    tag = "gateway pump fault"
+    sess = open_session(cfg, params, db, system, budget,
+                        faults=FaultPlan([FaultSpec("gateway.pump", "fail",
+                                                    after=4)]),
+                        recovery=RecoveryPolicy())
+
+    async def pump_main():
+        gw = sess.gateway(max_batch=MAX_BATCH, max_queue=GW_QUEUE).start()
+        got, _, _ = await drive_wave(gw, cfg, wave())
+        m = gw.metrics()
+        await gw.close(drain=True)
+        return got, m
+
+    got, m = guarded(tag, lambda: asyncio.run(pump_main()))
+    failed = sorted(rid for rid, (_, err) in got.items() if err is not None)
+    led = m["broker"]["ledger"]
+    if m["pump_errors"] != 1 or not 1 <= len(failed) <= MAX_BATCH \
+            or led["failed"] != len(failed) or not m["broker"]["reconciles"]:
+        raise AssertionError(f"{tag}: pump errors {m['pump_errors']}, "
+                             f"failed {failed}, ledger {led}")
+    same(tag, got, [rid for rid in want if rid not in failed])
+    for rid in failed:
+        toks = got[rid][0]
+        if toks != want[rid][:len(toks)]:
+            raise AssertionError(f"{tag}: request {rid} streamed other "
+                                 "tokens before its error")
+    out["pump_fault"] = {"failed": failed, "ledger": led}
+    log(f"{tag}: pump_errors 1; requests {failed} (active at the fault) got "
+        f"the error, the other {GW_REQ - len(failed)} tokens == direct; "
+        "ledger reconciles")
+    sess.close()
+
+    # /admin/rebudget 0.1x -> 0.5x once the first chunk has left
+    tag = "gateway rebudget 0.1x -> 0.5x"
+    sess = open_session(cfg, params, db, system, budget)
+    new_budget = int(total * 0.5)
+
+    async def rebudget_main():
+        gw = sess.gateway(max_batch=MAX_BATCH, max_queue=GW_QUEUE).start()
+
+        async def rebudget(c):
+            while gw._first_chunk_at is None:
+                await asyncio.sleep(0.002)
+            st, _, b = await c.request(
+                "POST", "/admin/rebudget",
+                json.dumps({"budget_bytes": new_budget}).encode())
+            return st, json.loads(b), gw.batcher.iterations
+
+        got, _, res = await drive_wave(gw, cfg, wave(), during=rebudget)
+        await gw.close(drain=True)
+        return got, res
+
+    got, (st, obj, at_iter) = guarded(tag,
+                                      lambda: asyncio.run(rebudget_main()))
+    same(tag, got)
+    diff = sess.replan_log[-1]
+    ex = sess.executor.stats
+    if st != 200 or obj["moved_bytes"] != diff.moved_bytes \
+            or (ex.rebind_pinned_bytes, ex.rebind_evicted_bytes) \
+            != (diff.pin_bytes, diff.evict_bytes):
+        raise AssertionError(f"{tag}: {st} {obj}, diff {diff.summary()}")
+    out["rebudget"] = {"moved_bytes": diff.moved_bytes,
+                       "pin_bytes": diff.pin_bytes,
+                       "at_iteration": at_iter}
+    log(f"{tag} at iteration {at_iter}: tokens == direct; moved "
+        f"{diff.moved_bytes} B == Schedule.diff (pinned {diff.pin_bytes} "
+        f"B)")
+    sess.close()
+
+    # the 64-page paged session: a client disconnects mid-stream
+    tag = f"gateway paged {FORCED_POOL} pages disconnect"
+    sess = open_session(cfg, params, db, system, budget, kv_layout="paged",
+                        kv_pool_pages=FORCED_POOL)
+    batcher = sess.batcher(max_batch=MAX_BATCH)
+    batcher.kv.prefix_enabled = False   # so no block outlives its request
+
+    async def paged_main():
+        gw = sess.gateway(max_batch=MAX_BATCH, max_queue=GW_QUEUE).start()
+        c = InprocClient(gw)
+        reqs = wave()[:MAX_BATCH]
+        victim = asyncio.ensure_future(sse_request(c, cfg, reqs[0],
+                                                   stop_after=3))
+        await asyncio.sleep(GW_GAP_S)
+        others = [asyncio.ensure_future(sse_request(c, cfg, r))
+                  for r in reqs[1:]]
+        await victim
+        res = await asyncio.gather(*others)
+        m = gw.metrics()
+        await gw.close(drain=True)
+        return {r.rid: x for r, x in zip(reqs[1:], res)}, m
+
+    got, m = guarded(tag, lambda: asyncio.run(paged_main()))
+    same(tag, got, list(got))
+    led = m["broker"]["ledger"]
+    alloc = batcher.kv.alloc
+    alloc.check()
+    if led["cancelled"] != 1 or led["completed"] != MAX_BATCH - 1 \
+            or any(sl is not None for sl in batcher.slots) \
+            or len(alloc.blocks):
+        raise AssertionError(f"{tag}: ledger {led}, slots {batcher.slots}, "
+                             f"{len(alloc.blocks)} blocks left")
+    out["paged_disconnect"] = {"ledger": led,
+                               "evictions": batcher.kv.stats.evictions}
+    log(f"{tag}: the victim's pages freed (0 blocks left, pool "
+        f"consistent), the other {MAX_BATCH - 1} tokens == direct; "
+        f"evictions {batcher.kv.stats.evictions}")
+    sess.close()
+
+    # /healthz after an injected alloc.device
+    tag = "gateway healthz after alloc.device"
+    sess = open_session(cfg, params, db, system, budget,
+                        faults=FaultPlan([FaultSpec("alloc.device", "oom",
+                                                    key="decode", after=1)]),
+                        recovery=RecoveryPolicy())
+
+    async def health_main():
+        gw = sess.gateway(max_batch=MAX_BATCH, max_queue=GW_QUEUE).start()
+        c = InprocClient(gw)
+        st, _, b = await c.request("POST", "/v1/chat/completions",
+                                   chat_body(cfg, wave()[0], False))
+        hst, _, h = await c.request("GET", "/healthz")
+        await gw.close(drain=True)
+        return st, json.loads(b), hst, json.loads(h)
+
+    st, body, hst, health = guarded(tag, lambda: asyncio.run(health_main()))
+    if st != 200 or body["choices"][0]["token_ids"] != want[0] \
+            or hst != 200 or health["status"] != "degraded" \
+            or health["degradation_rung"] != "tier_down":
+        raise AssertionError(f"{tag}: {st}, {hst} {health}")
+    out["healthz"] = health
+    log(f"{tag}: {health}; tokens == direct")
+    sess.close()
+    free_cuda()
+    return out
 
 
 
@@ -2900,6 +3592,12 @@ def main() -> int:
     free_cuda()
     draft_cfg, draft_params = main.pop("model")
     spec = spec_path(main["link_gbps"], draft_cfg, draft_params)
+    free_cuda()
+    db, system, total = main.pop("setup")
+    faults = fault_path(draft_cfg, draft_params, db, system, total,
+                        main.pop("base_01"))
+    gateway = gateway_path(draft_cfg, draft_params, db, system, total)
+    faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
                     "link_gbps": main["link_gbps"],
@@ -2909,6 +3607,7 @@ def main() -> int:
                             "k4_block_q_bit_equal":
                                 fkern["block_q_bit_equal"]},
                     "moe": moe, "paged": main["paged"], "spec": spec,
+                    "faults": faults, "gateway": gateway,
                     "seconds": time.perf_counter() - t_start}))
     # kernel -> (the MoE run's tag, its results)
     moe_q = {kname: (qtag, moe["quant"][qtag])
@@ -2917,7 +3616,9 @@ def main() -> int:
         kernel_entry("streamed_matmul", "streamed_matmul.py:95",
                      main["launches"] + moe["launches"]
                      + main["paged"]["launches"] + spec["launches"]
-                     + spec["draft_launches"],
+                     + spec["draft_launches"] + faults["launches"]
+                     + faults["moe"]["launches"] + faults["spec"]["k1"]
+                     + gateway["launches"],
                      kern["max_abs_err"], kern["shapes"],
                      headline(kern["shapes"]),
                      source="streamed_matmul_mma"),
@@ -2944,7 +3645,13 @@ def main() -> int:
                            "qwen2-0.5b paged": main["paged"]["launches"],
                            f"{SPEC_ARCH} spec": spec["launches"],
                            f"{SPEC_ARCH} spec, its draft":
-                               spec["draft_launches"]},
+                               spec["draft_launches"],
+                           "qwen2-0.5b faults (and paged)":
+                               faults["launches"],
+                           f"{MOE_ARCH} faults": faults["moe"]["launches"],
+                           f"{SPEC_ARCH} spec faults, with its draft":
+                               faults["spec"]["k1"],
+                           "qwen2-0.5b gateway": gateway["launches"]},
                        "launches_by_variant": {
                            "qwen2-0.5b": main["variants"]["K1"],
                            MOE_ARCH: moe["variants"],

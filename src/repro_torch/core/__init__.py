@@ -1,8 +1,12 @@
 """Core runtime of the port: planning (jax-free copies of the reference) and
 the execution path on PyTorch: dense and MoE decoders, stacked or paged KV,
-speculative decoding."""
+speculative decoding, fault injection and the degradation ladder."""
 from repro_torch.core.costmodel import Placement, Plan, TimingEstimator  # noqa: F401
 from repro_torch.core.executor import ExecStats, PipelinedExecutor  # noqa: F401
+from repro_torch.core.faults import (  # noqa: F401
+    DEGRADATION_RUNGS, AllocationFault, DemandTimeout, FaultError,
+    FaultPlan, FaultSpec, RecoveryPolicy, TransferFault, WorkerCrash,
+    WorkerLost)
 from repro_torch.core.graphing import (  # noqa: F401
     build_graph, total_kv_bytes, total_weight_bytes)
 from repro_torch.core.install import run_install  # noqa: F401

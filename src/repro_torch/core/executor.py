@@ -26,9 +26,19 @@ turn, so at most the demand pool's slots hold cold experts on the card.
 No (E, ...) weight stack is built on either path: a sub-layer's experts
 are moved and kept as trees of their own (``mlp.split_experts``). The
 ledger holds exactly: ``streamed_bytes`` is the passes' static plan bytes
-plus ``demanded_expert_bytes`` plus ``demanded_page_bytes``. The
-reference's demand deadline and its sync fallback belong to the faults
-slice: a cold expert or page is a plain acquire.
+plus ``demanded_expert_bytes`` plus ``demanded_page_bytes``.
+
+Faults (``core/faults.py``): every pass entry fires ``alloc.device`` before
+its first launch and its first KV write, so a pass that an injected
+allocation failure aborts left nothing to undo and re-runs bit-identically
+after the serving layer degrades. A streamed sub-layer whose acquire fails
+(a stage copy past its retries, a dead worker, a demand deadline, the
+injected ``demand.timeout``) is discarded or abandoned and fetched at use,
+with its bytes in the ledger once. A dead worker past the recovery
+policy's ``crash_tolerance`` trips the watchdog (``degraded_sync``): from
+the next pass on the executor runs the synchronous ``overlap=False`` path,
+with the same tokens. An error raised by CUDA itself is never recovered
+from; it propagates (``prefetch.is_device_error``).
 
 Paged KV (``kv_layout="paged"``, ``core/kvpaged.py``): each pass maps its
 write blocks first, then each layer pins its pages and restores the ones
@@ -56,10 +66,13 @@ import torch.nn.functional as F
 
 from repro_torch.core import engine as eng
 from repro_torch.core.costmodel import Placement
+from repro_torch.core.faults import (DemandTimeout, FaultPlan, RecoveryPolicy,
+                                     WorkerLost)
 from repro_torch.core.kvpaged import PAGE_SIZE, PagedKVCache
 from repro_torch.core.planner import Schedule
-from repro_torch.core.prefetch import (PrefetchEngine, groups_nbytes,
-                                       groups_to_device, hand_to_compute,
+from repro_torch.core.prefetch import (PrefetchEngine, drop_traceback,
+                                       groups_nbytes, groups_to_device,
+                                       hand_to_compute, is_device_error,
                                        stage_groups)
 from repro_torch.core.sublayer import SubLayer
 from repro_torch.device import resolve_device
@@ -129,6 +142,17 @@ class ExecStats:
     # per verify pass: the streamed / static / expert / page byte split of
     # the ledger streamed == static + experts + pages
     verify_pass_stats: list = field(default_factory=list)
+    # fault recovery: retries and failures mirror the prefetcher's; a sync
+    # fallback is a shard fetched at use after its stage failed, its
+    # worker died or its deadline passed; degraded_sync is set once the
+    # worker watchdog parks the executor on the overlap=False path
+    fault_copy_retries: int = 0
+    fault_copy_failures: int = 0
+    fault_worker_crashes: int = 0
+    fault_demand_timeouts: int = 0
+    fault_sync_fallbacks: int = 0
+    fault_alloc_failures: int = 0
+    degraded_sync: bool = False
 
     @property
     def accept_rate(self) -> float:
@@ -159,7 +183,9 @@ class PipelinedExecutor:
                  overlap: bool = True, prefill_mode: str | None = None,
                  kv_layout: str = "stacked",
                  kv_page_size: int | None = None,
-                 kv_pool_pages: int | None = None, device=None):
+                 kv_pool_pages: int | None = None, device=None,
+                 faults: FaultPlan | None = None,
+                 recovery: RecoveryPolicy | None = None):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"the port's executor runs dense and MoE decoders, not "
@@ -178,7 +204,15 @@ class PipelinedExecutor:
         if prefill_mode not in ("layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.prefill_mode = prefill_mode
+        # live queue-pressure hints, set by the serving layer before a
+        # pass; the defaults leave every tier pick queue-blind
+        self.sched_queue_depth = 0
+        self.sched_slack_s: float | None = None
         self.stats = ExecStats()
+        # fault injection (None: every check is one skipped branch) and
+        # the always-on recovery policy
+        self.faults = faults
+        self.recovery = recovery if recovery is not None else RecoveryPolicy()
         self._sync_exposed = 0.0
         self._sync_staged = 0
         # split params into per-sublayer host copies ("sysRAM"), pinned
@@ -212,8 +246,9 @@ class PipelinedExecutor:
         self._sync_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._at_use_done = None   # CUDA event after the last at-use reader
-        self.prefetch = PrefetchEngine(self._host_groups, self.device) \
-            if overlap else None
+        self.prefetch = PrefetchEngine(
+            self._host_groups, self.device, faults=faults,
+            recovery=self.recovery) if overlap else None
 
     def _pin(self, pl):
         self._pinned[pl.sub.name] = self._join(
@@ -329,8 +364,11 @@ class PipelinedExecutor:
         is on the device however far the host runs ahead."""
         return self._join(self._stage_sync(placement))
 
-    def _stage_sync(self, placement):
-        """``_fetch_sync``'s transfer: the device groups, not joined."""
+    def _stage_sync(self, placement, account: bool = True):
+        """``_fetch_sync``'s transfer: the device groups, not joined.
+        ``account=False`` is the recovery fetch of a shard whose plan
+        bytes the caller counts itself: it moves the bytes and counts
+        them staged, nowhere else."""
         t_wait = time.perf_counter()
         if self._at_use_done is not None:
             self._at_use_done.synchronize()
@@ -342,10 +380,10 @@ class PipelinedExecutor:
         t1 = time.perf_counter()
         nbytes = groups_nbytes(groups)
         self._sync_staged += nbytes
-        if placement.streamed and placement.engine == "gpu":
+        if account and placement.streamed and placement.engine == "gpu":
             self._account_streamed(placement)
             self._sync_exposed += t1 - t0
-        else:
+        elif account:
             self.stats.at_use_bytes += nbytes
             self.stats.at_use_s += t1 - t_wait
         return hand_to_compute(dev, copied, self.device)
@@ -358,9 +396,71 @@ class PipelinedExecutor:
         if name in self._pinned_names:
             return self._pinned[name], "pinned"
         if name in streaming:
+            # counted before the acquire: the recovery fetch below moves
+            # the bytes without counting them again
             self._account_streamed(placement)
-            return self._join(self.prefetch.acquire(name)), "streamed"
+            try:
+                return self._join(self.prefetch.acquire(name)), "streamed"
+            except Exception as e:
+                if is_device_error(e):
+                    raise
+                drop_traceback(e)
+                self._note_stream_fault(e)
+                # the failed entry's slot frees now (if it held one), so
+                # the rest of the pass's staging goes on
+                self.prefetch.discard(name)
+                groups = self._stage_sync(placement, account=False)
+                return self._join(groups), "at_use"
         return self._fetch_sync(placement), "at_use"
+
+    # ------------------------------------------------------------ recovery
+    def _note_stream_fault(self, exc: Exception):
+        """Count one recovery fetch, and trip the worker watchdog once the
+        dead workers reach the policy's crash tolerance."""
+        self.stats.fault_sync_fallbacks += 1
+        if isinstance(exc, DemandTimeout):
+            self.stats.fault_demand_timeouts += 1
+        if isinstance(exc, WorkerLost) and not self.stats.degraded_sync \
+                and self.prefetch.stats.worker_crashes \
+                >= self.recovery.crash_tolerance:
+            # every later acquire of the dead pool would fail too: from the
+            # next pass on run the overlap=False path (same tokens)
+            self.stats.degraded_sync = True
+
+    def _demand_acquire(self, pl):
+        """Acquire a demand entry under the demand deadline. Returns
+        (device groups, source for ``_done_with``): on a timeout the entry
+        is abandoned, on a failure discarded, and either way the shard is
+        fetched at use, so a pass never waits on a demand it cannot get.
+        The caller counts the plan bytes, once, whichever way came."""
+        name = pl.sub.name
+        try:
+            if self.faults is not None:
+                self.faults.check("demand.timeout", key=name)
+            return self.prefetch.acquire(
+                name, timeout=self.recovery.demand_deadline_s), "streamed"
+        except Exception as e:
+            # a device error, or the consumer's own ordering bug
+            if is_device_error(e) or isinstance(e, AssertionError):
+                raise
+            drop_traceback(e)
+            if isinstance(e, DemandTimeout):
+                self.prefetch.abandon(name)
+            else:
+                self.prefetch.discard(name)
+            self._note_stream_fault(e)
+            return self._stage_sync(pl, account=False), "at_use"
+
+    def _check_alloc(self, where: str):
+        """The ``alloc.device`` point at a pass entry: before the pass's
+        first launch and its first KV write, so the serving layer can
+        degrade a rung and re-run the pass."""
+        if self.faults is not None:
+            try:
+                self.faults.check("alloc.device", key=where)
+            except Exception:
+                self.stats.fault_alloc_failures += 1
+                raise
 
     def _done_with(self, placement, source: str):
         """The sub-layer's compute is issued and its tree dropped: free the
@@ -381,6 +481,9 @@ class PipelinedExecutor:
             self.stats.copy_s_exposed += ps.copy_s_exposed
             self.stats.staged_bytes += ps.staged_bytes
             self.stats.prefetch_slots = ps.slots
+            self.stats.fault_copy_retries = ps.copy_retries
+            self.stats.fault_copy_failures = ps.copy_failures
+            self.stats.fault_worker_crashes = ps.worker_crashes
 
     # ------------------------------------------------------------ paged kv
     def _page_placement(self, cache, layer: int, bids):
@@ -409,11 +512,11 @@ class PipelinedExecutor:
         pl = self._page_placement(cache, layer, faults)
         if page_stream:
             self.prefetch.request([pl])
-            groups = self.prefetch.acquire(pl.sub.name)
+            groups, src = self._demand_acquire(pl)
             self._account_streamed(pl)
             cache.fold(faults, groups)
             del groups
-            self.prefetch.release(pl.sub.name)
+            self._done_with(pl, src)
         else:
             # at-use restore: overlap disabled, or a straggler evicted
             # after this pass's demand sizing; _stage_sync accounts the
@@ -453,7 +556,8 @@ class PipelinedExecutor:
         # Expert shards never enter the static queue: they are requested
         # mid-pass, once each layer's router has selected them.
         order, demand_bytes = [], 0
-        if self.prefetch is not None:
+        # once the watchdog tripped, every pass runs the overlap=False path
+        if self.prefetch is not None and not self.stats.degraded_sync:
             order = [p for p in plan.static_stream_order()
                      if p.sub.name not in self._pinned_names]
             demand_bytes = max(
@@ -576,8 +680,9 @@ class PipelinedExecutor:
             e = pl.sub.meta["expert"]
             self.stats.engine_calls[pl.engine] += 1
             if pl.sub.name in requested:
-                tree = self._join(self.prefetch.acquire(pl.sub.name))
-                src = "streamed"
+                groups, src = self._demand_acquire(pl)
+                tree = self._join(groups)
+                del groups
                 self._account_streamed(pl)
                 self.stats.demanded_expert_bytes += pl.sub.weight_bytes
             else:
@@ -642,6 +747,7 @@ class PipelinedExecutor:
         tokens: (B, T) int tensor on the device; kv: dict with stacked
         "k"/"v" tensors (L, B, KV, S, hd), written in place. Only the final
         position's logits are computed. Returns ((B, 1, V) logits, kv)."""
+        self._check_alloc("chunk")
         by_name, streaming, started = self._begin_pass(
             self.schedule.pick_tier(tokens.shape[0] * tokens.shape[1]))
         try:
@@ -666,11 +772,15 @@ class PipelinedExecutor:
         crosses the link exactly once per iteration. ``kv``: the stacked
         dict, or a ``PagedKVCache`` whose pages this pass maps and
         restores."""
+        # before the page table is touched: an abort leaves nothing to undo
+        self._check_alloc("decode")
         paged = isinstance(kv, PagedKVCache)
         page_demand = self._prepare_pages(kv, pos_vec, active, 1) \
             if paged else 0
         by_name, streaming, started = self._begin_pass(
-            self.schedule.pick_decode_tier(n_active),
+            self.schedule.pick_decode_tier(
+                n_active, queue_depth=self.sched_queue_depth,
+                slack_s=self.sched_slack_s),
             page_demand_bytes=page_demand)
         page_stream = paged and self._demand_active
         streamed_before = self.stats.streamed_bytes
@@ -734,11 +844,14 @@ class PipelinedExecutor:
         The tier pick sees ``n_active * W`` new tokens: a verify pass is a
         batch-wide token count of that size. Returns ((B, W, V) logits,
         kv)."""
+        self._check_alloc("verify")
         B, W = tokens.shape
         paged = isinstance(kv, PagedKVCache)
         page_demand = self._prepare_pages(kv, pos_vec, active, W) \
             if paged else 0
-        tier = self.schedule.pick_decode_tier(n_active * W)
+        tier = self.schedule.pick_decode_tier(
+            n_active * W, queue_depth=self.sched_queue_depth,
+            slack_s=self.sched_slack_s)
         by_name, streaming, started = self._begin_pass(
             tier, page_demand_bytes=page_demand)
         page_stream = paged and self._demand_active
@@ -815,9 +928,11 @@ class PipelinedExecutor:
         if self.kv_layout == "paged":
             n_pages = None if self.kv_pool_pages is None \
                 else self.kv_pool_pages + 1      # + the null write sink
-            return PagedKVCache(self.cfg, batch, self.max_seq,
-                                page_size=self.kv_page_size,
-                                n_pages=n_pages, device=self.device)
+            cache = PagedKVCache(self.cfg, batch, self.max_seq,
+                                 page_size=self.kv_page_size,
+                                 n_pages=n_pages, device=self.device)
+            cache.fault_plan = self.faults     # the alloc.host point
+            return cache
         return init_cache(self.cfg, batch, self.max_seq, device=self.device)
 
     def prefill(self, tokens, kv=None, prefill_mode: str | None = None,
@@ -838,6 +953,9 @@ class PipelinedExecutor:
             self.prefill_mode
         if mode not in ("layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {mode!r}")
+        # before anything of the pass: the prefix lookup, the page table,
+        # the copy of the tokens
+        self._check_alloc("prefill")
         tokens = tokens.to(self.device)
         B, T = tokens.shape
         if kv is None:
@@ -858,8 +976,9 @@ class PipelinedExecutor:
             page_demand = kv.layer_fault_bytes(faults)
             self._active_kvcache = kv
         if mode == "layer_major":
-            tier = self.schedule.pick_prefill_tier(B * (T - pos0),
-                                                   min_tier=B)
+            tier = self.schedule.pick_prefill_tier(
+                B * (T - pos0), min_tier=B,
+                queue_depth=self.sched_queue_depth)
         else:
             tier = self.schedule.pick_tier(B * T)
         if tier // B < 1:

@@ -33,9 +33,12 @@ and before anything that later reuses the page id (a scatter of this pass,
 a restore's fold), since those are issued on the same stream after it. A
 CUDA event recorded after the copy (``host_ready``) is what a restore's
 host-to-device copy, on another stream, waits for before it reads the
-host slot. The reference's ``fault_plan`` hook (the ``alloc.host``
-injection point in ``_collect``) belongs to the faults slice of the port
-and is left out here.
+host slot.
+
+``fault_plan`` (set by the executor, ``core/faults.py``) is the
+``alloc.host`` injection point: ``_collect`` fires it before any block is
+made or copied on write, so an injected allocation failure leaves the
+table as it was and the serving ladder can re-run the pass.
 """
 from __future__ import annotations
 
@@ -327,6 +330,9 @@ class PagedKVCache:
         # per-pass state
         self._pass_needed: List[List[int]] = []
         self._pass_written: List[set] = []
+        # alloc.host fault injection (set by the executor); named
+        # fault_plan because faults() is the pass-fault list
+        self.fault_plan = None
 
     # ------------------------------------------------------------ movement
     def _evict_cb(self, bid: int, pid: int):
@@ -503,6 +509,11 @@ class PagedKVCache:
         reads the whole prefix); blocks overlapping ``[write_from, n)``
         are write targets (allocated, COW-guarded, marked dirty).
         """
+        # before any block is made: an injected failure leaves the table
+        # untouched (a real PagePoolFull from new_block takes the same
+        # recovery path)
+        if self.fault_plan is not None:
+            self.fault_plan.check("alloc.host", key="prepare")
         L = self.cfg.n_layers
         ps = self.page_size
         needed: List[List[int]] = [[] for _ in range(L)]

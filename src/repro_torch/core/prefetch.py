@@ -50,10 +50,42 @@ every op. Separate pools keep demands deadlock-free: the static worker may
 hold every static slot for layers ahead of the consumer, and a demanded
 expert never waits for them.
 
-The reference's fault points (injected faults, copy retries, the demand
-deadline and the worker watchdog) belong to the faults slice of the port:
-``acquire`` takes no deadline here, and a staging error reaches the
-consumer through the entry it was staging.
+Fault tolerance (``core/faults.py``): a stage copy fires ``prefetch.copy``
+(static) or ``demand.copy`` (demand) once per attempt and retries with
+backoff under ``RecoveryPolicy`` before its error reaches ``acquire``; an
+attempt issues its copies and records the ready event only once the fault
+check and the host fetch have passed, so a failed attempt leaves no copy
+the consumer could wait on, and ``staged_bytes`` counts the attempt that
+succeeded, once. ``acquire(name, timeout=)`` raises ``DemandTimeout`` when
+the static pool's host wait runs past the deadline; the consumer then
+``abandon()``s the entry (or ``discard()``s a failed one) and fetches the
+shard itself. The static worker fires ``prefetch.worker`` per item before
+staging it; if anything kills it (that point's ``crash``, or a CUDA error
+in ``_take_slot``'s wait), ``_worker_died`` fails every pending entry of
+its pool with ``WorkerLost`` and records ``worker_error``, so ``acquire``,
+``discard`` and ``finish`` return instead of waiting forever.
+
+The demand pool has no worker thread, so the reference's demand worker
+maps onto ``_issue_demands``: ``demand.worker`` fires there once per entry,
+before the entry is staged (the reference's position per item, hits in
+request order). Its ``crash`` marks the pool dead for the session, as the
+reference's ``_worker_died("demand")``: that entry and every queued one
+fail with ``WorkerLost``, later ``request()`` calls fail their entries up
+front, ``worker_crashes`` counts one, and the exception never leaves
+``request()`` or ``release()``. No host thread waits for a demand copy, so
+the demand path has no organic ``DemandTimeout``: only an injected
+``demand.timeout`` (fired by the executor) raises it there.
+
+Page entries are coarser than the reference's: there each evicted KV block
+is a demand entry of its own, here a layer's evicted blocks are one
+``kv_page`` entry. ``demand.copy`` and ``demand.timeout`` hits on a paged
+run therefore count differently in the two packages; on static and expert
+entries they count alike.
+
+An error raised by CUDA itself (``is_device_error``) poisons the context:
+it is not retried, not counted as a copy failure, and reaches the consumer
+as it is, which lets it propagate. Only injected faults and host-side
+failures go through recovery.
 """
 from __future__ import annotations
 
@@ -65,7 +97,42 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.core.faults import (DemandTimeout, FaultError, FaultPlan,
+                                     RecoveryPolicy, WorkerLost)
 from repro_torch.models.common import tree_leaves, tree_map, tree_nbytes
+
+
+def is_device_error(exc: Optional[BaseException]) -> bool:
+    """True when ``exc``, or an error it was raised from, is an error of
+    CUDA itself (``torch.AcceleratorError`` where PyTorch has it, a
+    ``RuntimeError`` reading "CUDA error" or "CUDA driver error", or a CUDA
+    out-of-memory error). Such an error is not recovered from: retrying a
+    copy or fetching the shard again would hide the device's fault. An
+    injected ``FaultError`` never is one."""
+    accel = getattr(torch, "AcceleratorError", None)
+    while exc is not None:
+        if isinstance(exc, FaultError):
+            return False
+        if accel is not None and isinstance(exc, accel):
+            return True
+        if isinstance(exc, torch.cuda.OutOfMemoryError):
+            return True
+        if isinstance(exc, RuntimeError) and str(exc).startswith(
+                ("CUDA error", "CUDA driver error")):
+            return True
+        exc = exc.__cause__
+    return False
+
+
+def drop_traceback(exc: BaseException):
+    """Forget a handled error's traceback. An injected fault's traceback
+    holds the frame of ``FaultPlan.check``, whose local holds the fault,
+    and a failed entry's error is held by the entry, a local of
+    ``acquire``'s frame: cycles that keep every frame of the traceback
+    alive, and their callers' (a frame holds its caller), with what they
+    hold on the card (a layer's dispatch buffers, a shard fetched in a
+    failed entry's place), until the garbage collector runs."""
+    exc.__traceback__ = None
 
 
 @dataclass
@@ -77,6 +144,10 @@ class PrefetchStats:
     slots: int = 0               # realised double-buffer depth (0: no session)
     demand_slots: int = 0        # realised demand-pool depth
     demanded_sublayers: int = 0  # entries staged through the demand queue
+    copy_retries: int = 0        # stage copies retried after a failure
+    copy_failures: int = 0       # stage copies that exhausted their retries
+    worker_crashes: int = 0      # static worker deaths, demand pool deaths
+    abandoned: int = 0           # entries dropped past their deadline
 
 
 class _Staged:
@@ -193,10 +264,17 @@ class PrefetchEngine:
     the device list to ``acquire`` in FIFO order.
     """
 
-    def __init__(self, fetch_host: Callable, device: torch.device):
+    def __init__(self, fetch_host: Callable, device: torch.device,
+                 faults: Optional[FaultPlan] = None,
+                 recovery: Optional[RecoveryPolicy] = None):
         self._fetch_host = fetch_host
         self.device = device
+        self.faults = faults
+        self.recovery = recovery if recovery is not None else RecoveryPolicy()
         self.stats = PrefetchStats()
+        # set when a pool's staging died this session (WorkerLost)
+        self.worker_error: Optional[WorkerLost] = None
+        self.demand_worker_error: Optional[WorkerLost] = None
         cuda = device.type == "cuda"
         self._stream = torch.cuda.Stream(device) if cuda else None
         self._demand_stream = torch.cuda.Stream(device) if cuda else None
@@ -254,6 +332,8 @@ class PrefetchEngine:
         self.stats.slots = self.slots_for(order, avail_bytes)
         self._sem = threading.Semaphore(self.stats.slots)
         self._staged = {n: _Staged() for n in names}
+        self.worker_error = None
+        self.demand_worker_error = None
         if demand_bytes > 0:
             if avail_bytes is None:
                 self.stats.demand_slots = 2
@@ -275,18 +355,45 @@ class PrefetchEngine:
                 target=self._worker, args=(list(order),), daemon=True)
             self._thread.start()
 
+    def _copy_with_retries(self, pl, point: str, stage):
+        """Fetch ``pl``'s host groups and ``stage`` them, retrying a failed
+        attempt with backoff under the recovery policy; ``point`` fires
+        once per attempt, before anything is fetched or issued. Returns
+        (host groups, what ``stage`` returned) or raises the last error. A
+        device error is neither retried nor counted."""
+        pol = self.recovery
+        attempt = 0
+        while True:
+            try:
+                if self.faults is not None:
+                    self.faults.check(point, key=pl.sub.name)
+                host = self._fetch_host(pl.sub)
+                return host, stage(host)
+            except BaseException as e:
+                if is_device_error(e):
+                    raise
+                if attempt >= pol.max_copy_retries or not pol.retryable(e):
+                    with self._lock:
+                        self.stats.copy_failures += 1
+                    raise
+                with self._lock:
+                    self.stats.copy_retries += 1
+                drop_traceback(e)
+                pol.sleep(pol.backoff_s(attempt))
+                attempt += 1
+
     def _stage_one(self, pl, st: _Staged):
         st.holds_slot = True
         try:
             t0 = time.perf_counter()
-            host = self._fetch_host(pl.sub)
-            st.tree, st.copied = stage_groups(host, self.device,
-                                              self._stream)
+            host, (st.tree, st.copied) = self._copy_with_retries(
+                pl, "prefetch.copy",
+                lambda h: stage_groups(h, self.device, self._stream))
             st.copy_s = time.perf_counter() - t0
             with self._lock:
                 self.stats.staged_bytes += groups_nbytes(host)
                 self.stats.staged_sublayers += 1
-        except Exception as e:   # surfaced to the consumer on acquire
+        except BaseException as e:   # surfaced to the consumer on acquire
             st.error = e
         finally:
             with self._lock:
@@ -308,9 +415,47 @@ class PrefetchEngine:
         self._sem.release()
 
     def _worker(self, order):
-        for pl in order:
-            self._take_slot()
-            self._stage_one(pl, self._staged[pl.sub.name])
+        try:
+            for pl in order:
+                self._take_slot()
+                if self.faults is not None:
+                    self.faults.check("prefetch.worker", key=pl.sub.name)
+                self._stage_one(pl, self._staged[pl.sub.name])
+        except BaseException as e:
+            self._worker_died(e)
+
+    def _worker_died(self, exc: BaseException):
+        """The static worker died outside an item's staging: fail every
+        pending entry of its pool with ``WorkerLost`` (the cause chained),
+        so a blocked ``acquire`` or ``finish`` wakes instead of waiting
+        forever. The dead pool's semaphore may be over-released later,
+        harmlessly: each ``start`` makes a new one."""
+        err = WorkerLost(f"static prefetch worker died: {exc!r}")
+        err.__cause__ = exc
+        with self._lock:
+            self.stats.worker_crashes += 1
+            self.worker_error = err
+            for st in list(self._staged.values()):
+                if st.pool == "static" and not st.event.is_set():
+                    st.error = err
+                    st.event.set()
+
+    def _demand_died(self, exc: BaseException, staging: _Staged):
+        """The demand pool's staging died (an injected ``demand.worker``
+        crash): the entry it was staging and every queued one fail with
+        ``WorkerLost``; later requests of this session fail up front."""
+        err = WorkerLost(f"demand prefetch worker died: {exc!r}")
+        # the cause was raised on the consumer's thread, inside whatever
+        # layer requested or released: its frames hold that layer's buffers
+        drop_traceback(exc)
+        err.__cause__ = exc
+        self.demand_worker_error = err
+        with self._lock:
+            self.stats.worker_crashes += 1
+        for st in [staging] + [st for _, st in self._demand_q]:
+            st.error = err
+            st.event.set()
+        self._demand_q.clear()
 
     # ------------------------------------------------------------ demand
     def request(self, placements: List):
@@ -326,24 +471,37 @@ class PrefetchEngine:
             assert name not in self._staged, \
                 f"{name} already staged or requested this pass"
             st = self._staged[name] = _Staged(pool="demand")
-            self._demand_q.append((pl, st))
+            if self.demand_worker_error is not None:
+                # a dead pool stages nothing more this session
+                st.error = self.demand_worker_error
+                st.event.set()
+            else:
+                self._demand_q.append((pl, st))
         self._issue_demands()
 
     def _issue_demands(self):
         """Copy queued demand entries, in request order, into free slots.
-        The host does not wait for the copies (``copy_s`` stays 0)."""
+        The host does not wait for the copies (``copy_s`` stays 0). Each
+        entry fires ``demand.worker`` before it is staged; a crash there
+        kills the pool (``_demand_died``) and is not raised."""
         while self._demand_q and self._demand_free:
             pl, st = self._demand_q.popleft()
+            if self.faults is not None:
+                try:
+                    self.faults.check("demand.worker", key=pl.sub.name)
+                except Exception as e:
+                    self._demand_died(e, st)
+                    return
             st.slot = self._demand_free.pop()
             # a shard whose host data is still being written carries the
             # write's event in its meta (paged-KV write-backs)
-            meta = getattr(pl.sub, "meta", {})
+            ready = getattr(pl.sub, "meta", {}).get("ready")
             with self._lock:
                 self.stats.demanded_sublayers += 1
             try:
-                host = self._fetch_host(pl.sub)
-                st.tree, st.copied = self._stage_into_slot(
-                    host, st.slot, meta.get("ready"))
+                host, (st.tree, st.copied) = self._copy_with_retries(
+                    pl, "demand.copy",
+                    lambda h: self._stage_into_slot(h, st.slot, ready))
                 with self._lock:
                     self.stats.staged_bytes += groups_nbytes(host)
                     self.stats.staged_sublayers += 1
@@ -397,19 +555,24 @@ class PrefetchEngine:
         self._free_demand_slot(st, None)
 
     # ------------------------------------------------------------ consume
-    def acquire(self, name: str):
+    def acquire(self, name: str, timeout: Optional[float] = None):
         """Block until ``name``'s weights are staged; returns the device
-        groups. The wait is the exposed copy time; the rest was hidden. A
-        demand entry has been copied (or its copy issued) once an entry
-        before it freed a slot, and is never waited for here."""
+        groups. The wait is the exposed copy time; the rest was hidden.
+        With ``timeout``, a static entry not staged within it raises
+        ``DemandTimeout``: the caller then ``abandon``s it (never
+        releases) and fetches the shard itself. A demand entry has been
+        copied (or its copy issued) once an entry before it freed a slot,
+        and is never waited for here."""
         st = self._staged[name]
         if st.pool == "demand" and not st.event.is_set():
             raise AssertionError(f"{name} acquired before a demand slot "
                                  "freed for it: release each demanded "
                                  "entry before acquiring the next")
         t0 = time.perf_counter()
-        st.event.wait()
+        staged = st.event.wait(timeout)
         exposed = time.perf_counter() - t0
+        if not staged:
+            raise DemandTimeout(f"{name} not staged within {timeout:.3f}s")
         if st.error is not None:
             raise st.error
         self.stats.copy_s_exposed += exposed
@@ -450,6 +613,7 @@ class PrefetchEngine:
         with self._lock:
             st = self._staged.pop(name)
             st.abandoned = True
+            self.stats.abandoned += 1
             if st.pool == "static" and st.event.is_set():
                 st.tree = None
                 self._free_slot(None)

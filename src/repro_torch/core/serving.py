@@ -24,6 +24,17 @@ the pinned draft, verifies them in one streamed target pass, commits the
 longest accepted prefix plus the target's bonus token and rolls back the
 rejected KV suffix (``_decode_spec``): the tokens equal plain greedy
 decode's.
+
+Faults (``core/faults.py``): a request whose servicing raises fails alone
+(``_fail_slot``: an error event, its slot and pages freed), and the other
+slots' tokens do not change; an allocation failure (an injected
+``alloc.device`` / ``alloc.host``, or a real ``PagePoolFull``) walks the
+owning session one rung down the degradation ladder and re-runs the
+admission or the iteration, which aborted before any KV write. A handled
+fault's traceback is dropped (``prefetch.drop_traceback``): it would keep
+the frames of the pass it aborted, and what they hold, alive.
+``set_queue_pressure`` feeds a caller's queue depth and deadline slack
+into the tier picks (the gateway does, each pump turn).
 """
 from __future__ import annotations
 
@@ -35,7 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import PipelinedExecutor
-from repro_torch.core.kvpaged import PagedKVCache
+from repro_torch.core.faults import AllocationFault
+from repro_torch.core.kvpaged import PagedKVCache, PagePoolFull
+from repro_torch.core.prefetch import drop_traceback
 from repro_torch.core.planner import Schedule
 from repro_torch.models.common import greedy_token
 
@@ -51,6 +64,7 @@ class Request:
     first_token_at: Optional[float] = None
     done_at: Optional[float] = None
     cancelled_at: Optional[float] = None
+    error: Optional[str] = None   # set when servicing this request failed
     pos: int = 0
 
     @property
@@ -70,11 +84,14 @@ class TokenEvent:
     """One token emitted by one serve iteration: what an incremental caller
     receives from ``ContinuousBatcher.step()``. ``index`` is the token's
     position in ``request.generated``; ``done`` marks the request's final
-    token (its slot is already free)."""
+    token (its slot is already free). ``error`` marks a failed request's
+    terminal event instead of a token: ``token`` is -1 and ``done`` True,
+    and only this rid's client is affected."""
     rid: int
     token: int
     index: int
     done: bool
+    error: Optional[str] = None
 
 
 def random_requests(vocab: int, n: int, prompt_len: int,
@@ -152,10 +169,19 @@ class ContinuousBatcher:
         self.pending: List[Request] = []
         self._events: List[TokenEvent] = []
         self.cancelled: List[Request] = []
+        # live queue-pressure hints for the tier picks: off until
+        # set_queue_pressure turns them on
+        self._queue_aware = False
+        self._queue_depth = 0
+        self._slack_s: Optional[float] = None
         self.last_tokens = np.zeros((max_batch, 1), np.int32)
         self.iterations = 0
         self.tier_log = []
         self.completed: List[Request] = []
+        # requests failed alone, and ladder rungs taken under this
+        # batcher: both empty on a clean serve
+        self.failed: List[Request] = []
+        self.degradations: List[dict] = []
         # per decode iteration: plan-accounted streamed weight bytes, and
         # actual host->device bytes moved (covers CPU-engine at-use fetches)
         self.iter_streamed_bytes: List[int] = []
@@ -209,7 +235,7 @@ class ContinuousBatcher:
                 # validate BEFORE taking the slot
                 self._validate(req)
                 self.slots[i] = req
-                self._prefill_slot(i, req)
+                self._prefill_guard(i, req)
 
     def _validate(self, req: Request):
         T = len(req.prompt)
@@ -253,6 +279,54 @@ class ContinuousBatcher:
         # token: retire it here so its slot frees immediately
         if req.done:
             self._retire(slot)
+
+    def _prefill_guard(self, slot: int, req: Request):
+        """Admission under fault protection. An allocation failure walks
+        the session one rung down the ladder and re-runs the prefill,
+        after unmapping the pages the failed attempt attached. Any other
+        error fails this request alone; a ``ValueError`` (a contract
+        violation) propagates."""
+        while True:
+            try:
+                if self.ex.faults is not None:
+                    self.ex.faults.check("serving.request", key=str(req.rid))
+                self._prefill_slot(slot, req)
+                return
+            except (AllocationFault, PagePoolFull) as e:
+                if self._paged:
+                    self.kv.free_slot(slot)
+                self._degrade_or_raise(e)
+                drop_traceback(e)
+            except ValueError:
+                raise
+            except Exception as e:
+                self._fail_slot(slot, e)
+                drop_traceback(e)
+                return
+
+    def _fail_slot(self, slot: int, exc: Exception):
+        """Fail one in-flight request: record the error, free its slot and
+        its pages, and emit its terminal error event."""
+        req = self.slots[slot]
+        req.error = str(exc) or type(exc).__name__
+        req.done_at = time.perf_counter()
+        self.failed.append(req)
+        self.slots[slot] = None
+        if self._paged:
+            self.kv.free_slot(slot)
+        self._events.append(TokenEvent(req.rid, -1, len(req.generated),
+                                       True, error=req.error))
+
+    def _degrade_or_raise(self, exc: Exception):
+        """Step the owning session one rung down the degradation ladder,
+        or re-raise without a session or past the last rung."""
+        if self._session is None:
+            raise exc
+        level = self._session.degrade(reason=str(exc))
+        if level is None:
+            raise exc
+        self.degradations.append({"iteration": self.iterations,
+                                  "level": level, "reason": str(exc)})
 
     # ------------------------------------------------------------ retire
     def _retire(self, slot: int):
@@ -299,13 +373,15 @@ class ContinuousBatcher:
         for i in active:
             pos_vec[i] = self.slots[i].pos
             mask[i] = True
-        self.tier_log.append(self.schedule.pick_decode_tier(len(active)))
+        self.tier_log.append(self.schedule.pick_decode_tier(
+            len(active), queue_depth=self.ex.sched_queue_depth,
+            slack_s=self.ex.sched_slack_s))
         tokens, pos_t, mask_t = self._device_inputs(pos_vec, mask)
         logits, self.kv = self.ex._run_decode(tokens, self.kv, pos_t, mask_t,
                                               n_active=len(active))
         nxt = greedy_token(logits[:, -1]).cpu().numpy()
         for i in active:
-            self._advance(i, int(nxt[i]))
+            self._advance_guard(i, int(nxt[i]))
 
     def _seq_token(self, req: Request, idx: int) -> int:
         """Committed token at sequence index ``idx``: prompt positions
@@ -348,7 +424,9 @@ class ContinuousBatcher:
         tokens = np.concatenate([last[:, None], drafts],
                                 axis=1).astype(np.int32)
         # a verify pass is a batch-wide new-token count of n_active * W
-        self.tier_log.append(self.schedule.pick_decode_tier(len(active) * W))
+        self.tier_log.append(self.schedule.pick_decode_tier(
+            len(active) * W, queue_depth=self.ex.sched_queue_depth,
+            slack_s=self.ex.sched_slack_s))
         dev = self.device
         logits, self.kv = self.ex._run_verify(
             torch.as_tensor(tokens).to(dev), self.kv,
@@ -369,7 +447,10 @@ class ContinuousBatcher:
             st.spec_drafted += k
             st.spec_accepted += e - 1      # the bonus token is not counted
             for j in range(e):
-                self._advance(i, int(targets[i, j]))
+                if self.slots[i] is None:
+                    # failed mid-commit: the rest dies with the request
+                    break
+                self._advance_guard(i, int(targets[i, j]))
             if e < W:
                 st.spec_rollbacks += 1
                 st.spec_rolled_back_tokens += W - e
@@ -394,11 +475,30 @@ class ContinuousBatcher:
         for i in active:
             mask = np.zeros((self.max_batch,), bool)
             mask[i] = True
-            self.tier_log.append(self.schedule.pick_decode_tier(1))
+            self.tier_log.append(self.schedule.pick_decode_tier(
+                1, queue_depth=self.ex.sched_queue_depth,
+                slack_s=self.ex.sched_slack_s))
             tokens, pos_t, mask_t = self._device_inputs(pos_vec, mask)
             logits, self.kv = self.ex._run_decode(tokens, self.kv, pos_t,
                                                   mask_t, n_active=1)
-            self._advance(i, int(greedy_token(logits[i, -1])))
+            self._advance_guard(i, int(greedy_token(logits[i, -1])))
+
+    def _advance_guard(self, slot: int, token: int):
+        """Commit one slot's token under per-request isolation: an error
+        servicing it (an injected ``serving.request`` fault keyed to its
+        rid) fails that request alone, after the batched pass ran, so the
+        other slots commit theirs. Allocation failures belong to the
+        ladder in ``step`` and re-raise."""
+        try:
+            if self.ex.faults is not None:
+                self.ex.faults.check("serving.request",
+                                     key=str(self.slots[slot].rid))
+            self._advance(slot, token)
+        except (AllocationFault, PagePoolFull):
+            raise
+        except Exception as e:
+            self._fail_slot(slot, e)
+            drop_traceback(e)
 
     def _advance(self, slot: int, token: int):
         req = self.slots[slot]
@@ -426,9 +526,26 @@ class ContinuousBatcher:
         loop over this, bit-identically."""
         self._events = []
         t0 = time.perf_counter()
+        if self._queue_aware:
+            self._apply_queue_hints(admitting=True)
         self._admit(self.pending)
-        self._decode_iteration()
+        if self._queue_aware:
+            self._apply_queue_hints(admitting=False)
+        while True:
+            try:
+                self._decode_iteration()
+                break
+            except (AllocationFault, PagePoolFull) as e:
+                # degrade one rung and re-run the iteration: the failed
+                # attempt aborted at its pass entry, before any KV write,
+                # and the re-run writes the same tokens at the same places
+                self._degrade_or_raise(e)
+                drop_traceback(e)
         self.iterations += 1
+        if self._session is not None and self.ex.stats.degraded_sync:
+            # the worker watchdog parked the executor on the sync path:
+            # the session records the terminal rung
+            self._session.note_executor_degraded()
         self._serve_wall_s += time.perf_counter() - t0
         return self._events
 
@@ -452,6 +569,29 @@ class ContinuousBatcher:
                 self.cancelled.append(r)
                 return "active"
         return None
+
+    def set_queue_pressure(self, depth: int = 0,
+                           slack_s: Optional[float] = None):
+        """Feed live queue depth and deadline slack into the tier picks and
+        turn queue-aware picks on for later steps. ``depth`` is the
+        caller's queue beyond ``pending`` (the gateway broker's waiting
+        line), ``slack_s`` the tightest deadline slack of its live
+        requests. Never calling this keeps every pick queue-blind."""
+        self._queue_aware = True
+        self._queue_depth = max(0, depth)
+        self._slack_s = slack_s
+
+    def _apply_queue_hints(self, admitting: bool):
+        """The executor's hint fields at the step's two tier picks: before
+        admissions the imminent batch beyond one admission (the prefill
+        floor), before the decode pass the rows it holds beyond the active
+        ones. The raw depth is capped at what can join the batch."""
+        active = sum(1 for s in self.slots if s is not None)
+        imminent = min(active + len(self.pending) + self._queue_depth,
+                       self.max_batch)
+        self.ex.sched_queue_depth = max(0, imminent - (1 if admitting
+                                                       else active))
+        self.ex.sched_slack_s = self._slack_s
 
     def serve(self, requests: List[Request], max_iterations: int = 10_000):
         """Admit + decode until the queue drains or ``max_iterations``
@@ -478,6 +618,9 @@ class ContinuousBatcher:
             "engine_calls": dict(self.ex.stats.engine_calls),
             "completed": len(done),
             "cancelled": len(self.cancelled),
+            # fault handling: requests failed alone, ladder rungs taken
+            "failed": len(self.failed),
+            "degradations": len(self.degradations),
             "generated_tokens": total_generated,
             "wall_s": self._serve_wall_s,
             "aggregate_tps": total_generated / max(self._serve_wall_s, 1e-12),

@@ -26,10 +26,17 @@ executor's EMA) and the executor streams only the cold experts the
 routers select. A vlm session
 (qwen2-vl-7b's language stack) is planning-only, as in the reference: it
 builds the graph, the schedule and the estimates, and its executor,
-batcher, ``generate`` and ``serve`` raise. The reference's other options
-raise ``NotImplementedError`` naming the slice of the port they belong to
-(fault injection and the degradation ladder, with its ``spec_off`` rung;
-the gateway).
+batcher, ``generate`` and ``serve`` raise. Audio, SSM and hybrid families
+raise ``NotImplementedError`` naming the slice of the port they belong to.
+
+``faults=`` (a ``FaultPlan``) injects faults at the named points of the
+prefetcher, the executor, the paged cache, the batcher and the gateway;
+``recovery=`` (a ``RecoveryPolicy``) sets the retries, the demand deadline
+and the worker watchdog's tolerance. An allocation failure walks
+``degrade()`` one rung down the ladder (``spec_off``, ``expert_shrink``,
+``tier_down``, ``sync``); ``degradation()`` reports where the session
+stands. ``gateway()`` puts the OpenAI-compatible async gateway in front of
+the session's batcher.
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from repro_torch.core import (SYSTEMS, InferenceSetting, PipelinedExecutor,
                               plan_draft_carve, run_install)
 from repro_torch.core.costmodel import kv_block_bytes
 from repro_torch.core.executor import resolve_prefill_mode
+from repro_torch.core.faults import (DEGRADATION_RUNGS, FaultPlan,
+                                     RecoveryPolicy)
 from repro_torch.core.kvpaged import PAGE_SIZE
 from repro_torch.core.planner import TIERS
 from repro_torch.core.serving import ContinuousBatcher, Request
@@ -74,12 +83,15 @@ class Session:
                  kv_page_size: Optional[int] = None,
                  kv_pool_pages: Optional[int] = None,
                  draft_cfg=None, draft_params=None, spec_k: int = 0,
-                 sampling: str = "greedy", faults=None):
+                 sampling: str = "greedy",
+                 faults: Optional[FaultPlan] = None,
+                 recovery: Optional[RecoveryPolicy] = None):
         if cfg.family not in ("dense", "moe", "vlm"):
             _not_ported(f"family={cfg.family!r}",
                         "audio / SSM / hybrid model")
-        if faults is not None:
-            _not_ported("fault injection (faults)", "faults")
+        if faults is not None and not isinstance(faults, FaultPlan):
+            raise TypeError(f"faults must be a FaultPlan, got "
+                            f"{type(faults).__name__}")
         if prefill_mode not in (None, "layer_major", "chunk_major"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if kv_layout not in (None, "stacked", "paged"):
@@ -162,6 +174,14 @@ class Session:
             budget_bytes - self.draft_carve_bytes, self.subs, self.est,
             setting, tiers, kv_page_size=self.kv_page_size or PAGE_SIZE)
         self.replan_log: List[ScheduleDiff] = []
+        # fault injection, threaded through the executor into the
+        # prefetcher and the paged cache, and the ladder's state: how far
+        # an emergency re-budget has walked this session down
+        self.faults = faults
+        self.recovery = recovery
+        self.degradation_level = 0
+        self.degrade_log: List[dict] = []
+        self._emergency_reserve_bytes = 0
         self._params = params
         self._executor: Optional[PipelinedExecutor] = None
         self._batcher: Optional[ContinuousBatcher] = None
@@ -236,7 +256,8 @@ class Session:
                 overlap=self.overlap, prefill_mode=self.prefill_mode,
                 kv_layout=self.kv_layout, kv_page_size=self.kv_page_size,
                 kv_pool_pages=self._effective_kv_pool_pages(),
-                device=self.device)
+                device=self.device, faults=self.faults,
+                recovery=self.recovery)
         return self._executor
 
     def _effective_kv_pool_pages(self) -> Optional[int]:
@@ -304,7 +325,11 @@ class Session:
         return b.serve(requests, max_iterations=max_iterations)
 
     def gateway(self, **kw):
-        _not_ported("gateway()", "gateway")
+        """An OpenAI-compatible async serving gateway over this session's
+        batcher; keyword arguments go to ``Gateway`` (queue bound, rate
+        limits, queue-aware tier hints)."""
+        from repro_torch.gateway.server import Gateway   # import cycle
+        return Gateway(session=self, **kw)
 
     # ------------------------------------------------------------ re-plan
     def update_budget(self, new_budget_bytes: int) -> ScheduleDiff:
@@ -343,9 +368,11 @@ class Session:
         # target re-plans at the full budget), a later growth turns it on
         if self.spec_k > 0:
             self.draft_schedule, self.draft_carve_bytes = plan_draft_carve(
-                self.budget_bytes, self.draft_subs, self.subs, self.est,
-                self.setting, self.tiers)
-        new = build_schedule(self.budget_bytes - self.draft_carve_bytes,
+                self.budget_bytes - self._emergency_reserve_bytes,
+                self.draft_subs, self.subs, self.est, self.setting,
+                self.tiers)
+        new = build_schedule(self.budget_bytes - self.draft_carve_bytes
+                             - self._emergency_reserve_bytes,
                              self.subs, self.est, self.setting, self.tiers,
                              kv_page_size=self.kv_page_size or PAGE_SIZE)
         diff = self.schedule.diff(new)
@@ -363,6 +390,123 @@ class Session:
         self.schedule = new
         self.replan_log.append(diff)
         return diff
+
+    # ------------------------------------------------------------ ladder
+    def degrade(self, reason: str = "") -> Optional[int]:
+        """Walk one applicable rung down the emergency re-budget ladder in
+        answer to an allocation failure, and return the new level, or
+        ``None`` once the ladder is exhausted. Rungs, mildest first:
+
+          1. ``spec_off``      — drop the draft carve, its weights and KV
+          2. ``expert_shrink`` — veto the colder half of the expert hot set
+          3. ``tier_down``     — cut the tier table and hold back an
+                                 emergency reserve of budget // 4
+          4. ``sync``          — overlap off: every pass runs the
+                                 synchronous path, no staging slots
+
+        A rung changes residency or overlap, never a computed value, so the
+        tokens do not change. A rung that does nothing for this session
+        (a dense model, speculation off) is passed over without being
+        reported. After a rung the card's cached blocks are released, so
+        what the rung freed is free for other programs too."""
+        while self.degradation_level < len(DEGRADATION_RUNGS) - 1:
+            nxt = self.degradation_level + 1
+            rung = DEGRADATION_RUNGS[nxt]
+            applied = getattr(self, f"_rung_{rung}")()
+            self.degradation_level = nxt
+            if applied:
+                self.degrade_log.append({"level": nxt, "rung": rung,
+                                         "reason": reason})
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                return nxt
+        return None
+
+    def _rung_spec_off(self) -> bool:
+        if self.spec_k <= 0:
+            return False
+        # _replan re-carves only while spec_k > 0: clear the carve here,
+        # and drop the draft (its executor, weights and KV cache)
+        self.spec_k = 0
+        self.draft_schedule = None
+        self.draft_carve_bytes = 0
+        self._spec_decoder = None
+        self._replan()
+        return True
+
+    def _rung_expert_shrink(self) -> bool:
+        if not self.expert_granular:
+            return False
+        cands = sorted((s for s in self.subs if s.kind == "moe_expert"
+                        and not s.meta.get("pin_veto")),
+                       key=lambda s: s.meta.get("hot", 0.0))
+        if len(cands) < 2:
+            return False
+        for s in cands[:len(cands) // 2]:
+            s.meta["pin_veto"] = True
+        self._replan()
+        return True
+
+    def _rung_tier_down(self) -> bool:
+        ts = tuple(sorted(self.tiers))
+        cap = max(ts[0], ts[-1] // 4)
+        new = tuple(t for t in ts if t <= cap)
+        reserve = self.budget_bytes // 4
+        if new == ts and reserve <= self._emergency_reserve_bytes:
+            return False
+        self.tiers = new
+        self._emergency_reserve_bytes = max(reserve,
+                                            self._emergency_reserve_bytes)
+        self._replan()
+        return True
+
+    def _rung_sync(self) -> bool:
+        # a parked executor stages nothing: its prefetcher holds no slot
+        # and no demand buffer between passes
+        ex = self._executor
+        applied = False
+        if ex is not None:
+            if ex.prefetch is not None and not ex.stats.degraded_sync:
+                ex.stats.degraded_sync = True
+                applied = True
+        elif self.overlap:
+            applied = True
+        self.overlap = False
+        return applied
+
+    def note_executor_degraded(self):
+        """Record a sync degrade the worker watchdog forced: the executor
+        parked itself on the synchronous path after a prefetch worker
+        died, so the session stands at the last rung. Idempotent."""
+        terminal = len(DEGRADATION_RUNGS) - 1
+        if self.degradation_level >= terminal:
+            return
+        self.degradation_level = terminal
+        self.overlap = False
+        self.degrade_log.append({"level": terminal, "rung": "sync",
+                                 "reason": "prefetch worker watchdog"})
+
+    def degradation(self) -> dict:
+        """The ladder's position and the fault and recovery counters: what
+        ``stats()`` embeds and the gateway's /healthz and /metrics
+        report."""
+        out = {"level": self.degradation_level,
+               "rung": DEGRADATION_RUNGS[self.degradation_level],
+               "log": list(self.degrade_log)}
+        if self._executor is not None:
+            ex = self._executor.stats
+            out.update({
+                "copy_retries": ex.fault_copy_retries,
+                "copy_failures": ex.fault_copy_failures,
+                "worker_crashes": ex.fault_worker_crashes,
+                "demand_timeouts": ex.fault_demand_timeouts,
+                "sync_fallbacks": ex.fault_sync_fallbacks,
+                "alloc_failures": ex.fault_alloc_failures,
+                "degraded_sync": ex.degraded_sync,
+            })
+        if self.faults is not None:
+            out["injected"] = self.faults.counters()
+        return out
 
     @property
     def effective_prefill_mode(self) -> str:
@@ -466,6 +610,7 @@ class Session:
                     "page_faults": ex.page_faults,
                     "demanded_page_bytes": ex.demanded_page_bytes,
                 })
+        out["degradation"] = self.degradation()
         if self._batcher is not None:
             out["serving"] = self._batcher.stats()
         return out

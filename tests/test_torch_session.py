@@ -342,14 +342,17 @@ def test_open_without_cuda_raises(model, dbs, monkeypatch):
     # the reference's validation errors instead
     ("paged", dict(kv_layout="ring"), ValueError, "kv_layout"),
     ("speculative", dict(spec_k=2), ValueError, "draft"),
-    ("fault", dict(faults=object()), NotImplementedError, "slice"),
+    # fault injection is ported: a plan that is not a FaultPlan raises
+    ("fault", dict(faults=object()), TypeError, "FaultPlan"),
 ])
 def test_unported_options_name_their_slice(model, dbs, option, kw, error,
                                            match):
     with pytest.raises(error, match=match):
         _open(model, dbs, 2.0, **kw)
-    with pytest.raises(NotImplementedError, match="gateway"):
-        _open(model, dbs, 2.0).gateway()
+    # the gateway is ported: it fronts the session's own batcher
+    sess = _open(model, dbs, 2.0)
+    gw = sess.gateway(max_batch=2)
+    assert gw.session is sess and gw.batcher is sess.batcher()
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "zamba2-7b"])
