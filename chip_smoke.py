@@ -42,8 +42,9 @@ Phases (each raises on failure; the last line is printed only if all pass):
    null). Then K4
    (flash_attention) against its plain version over the sweep of
    tests/test_kernels.py, at the VLM path's vision (720p encoder) and
-   language (qwen2-vl-7b at 4096 tokens) shapes, a ragged causal length
-   and Tq != Tk, bf16 and f32 (the vision and language shapes in f32 as
+   language (qwen2-vl-7b at 4096 tokens) shapes and at zamba2-7b's (head
+   dim 112) and musicgen-medium's (64) at 4096 tokens, ragged causal
+   lengths (at head dims 128 and 112) and Tq != Tk, bf16 and f32 (the vision and language shapes in f32 as
    well), bf16 on the tensor-core kernel and f32 on the CUDA-core one
    (per-variant launch counts); bf16 also within a limit set by the
    tensor-core kernel's rounding of p and of its output, which the
@@ -116,7 +117,9 @@ Phases (each raises on failure; the last line is printed only if all pass):
    (``expert_quant``, K2 as one group) and int4 (``weight_quant``, K3)
    experts, each granular and monolithic at 0.5x and granular at 0.1x
    with identical tokens, 3 K2 or K3 launches per expert call, no
-   ``_dequant``, and the same plain teacher-forced check. One more bf16
+   ``_dequant``, and the same plain teacher-forced check; int8 experts
+   also granular at 0.5x with every prefill forced to tier 32 and to 64
+   (whether the tokens are identical is printed). One more bf16
    run serves granular at 0.5x with paged KV: tokens equal the stacked
    runs', ledger (pages as "kv") and peak gated;
 12. paged KV (phase 3's model, weights and wave, at 0.1x,
@@ -170,7 +173,21 @@ Phases (each raises on failure; the last line is printed only if all pass):
    fails the active tickets only; ``/admin/rebudget`` 0.1x -> 0.5x
    mid-wave (moved bytes equal ``Schedule.diff``); a client disconnecting
    mid-stream from the 64-page paged session frees its pages; ``/healthz``
-   reports the rung after an ``alloc.device``.
+   reports the rung after an ``alloc.device``;
+16. the hybrid, SSM and audio families, each drawn whole at its published
+   widths in bf16 on the card and served through ``Model.prefill`` /
+   ``decode_step``: the SSD scan against the sequential f64 recurrence at
+   zamba2's and xLSTM's layer shapes; per model a wave of 4 prompts of 64
+   tokens (frames) with 16 greedy tokens (prefill s, decode tok/s, the
+   peak gated against weights + cache + ``family_transient_bytes``, the
+   tokens under teacher forcing against the cache-less forward); zamba2-7b
+   with one 3840-token prompt and 256 decode steps and musicgen-medium
+   with 4080 frames and 16, each against its cache-less forward at 4096
+   tokens through K4 (13 and 48 launches, tensor cores, each within the
+   bf16-p limit); zamba2 (``TF_DRIFT_ARCHS``) also in f32, where its
+   tokens and its K4 forward against the plain attention's are gated;
+   each model's planning-only session (its executor raises); a probe of
+   which prefill ops give rows whose bits follow the chunk's row count.
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -781,6 +798,8 @@ FLASH_SWEEP = ((1, 4, 4, 128, 128, 64), (2, 8, 2, 256, 256, 64),
                (1, 6, 2, 192, 192, 128))            # tests/test_kernels.py
 VISION_SHAPE = (1, 16, 16, 4641, 4641, 80)          # 720p encoder layer
 LANGUAGE_SHAPE = (1, 28, 4, 4096, 4096, 128)        # qwen2-vl-7b, T=4096
+ZAMBA2_SHAPE = (1, 32, 32, 4096, 4096, 112)         # zamba2-7b's shared block
+MUSICGEN_SHAPE = (1, 24, 24, 4096, 4096, 64)        # musicgen-medium
 VISION_Q_CHUNK = 663        # the reference's Q-chunk at N = 4641
 KNOB_TOL = 2e-5             # tests/test_kernels.py::test_flash_q_chunk_knob
 
@@ -914,6 +933,9 @@ def flash_kernel_phase():
     for shape, causal, bq, bk in (((1, 28, 4, 2081, 2081, 128), True,
                                    1024, 1024),
                                   ((1, 8, 2, 300, 1000, 128), True, 128, 128),
+                                  ((1, 32, 32, 2081, 2081, 112), True, 1024,
+                                   1024),
+                                  ((1, 8, 8, 300, 1000, 112), True, 64, 64),
                                   ((1, 8, 2, 1000, 300, 80), True, 663, 1024),
                                   ((1, 8, 2, 300, 1000, 64), False, 64, 64)):
         for dtype in dtypes:
@@ -935,7 +957,9 @@ def flash_kernel_phase():
     # the path's shapes, bf16, timed over copies larger than the L2
     for tag, shape, causal, bq, bk in (
             ("vision", VISION_SHAPE, False, VISION_Q_CHUNK, 1024),
-            ("language", LANGUAGE_SHAPE, True, 1024, 1024)):
+            ("language", LANGUAGE_SHAPE, True, 1024, 1024),
+            ("zamba2", ZAMBA2_SHAPE, True, 1024, 1024),
+            ("musicgen", MUSICGEN_SHAPE, True, 1024, 1024)):
         B, H, KV, Tq, Tk, hd = shape
         set_bytes = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * 2
         sets = _qkv(gen, shape, torch.bfloat16,
@@ -2583,13 +2607,15 @@ def moe_path(link):
                                     qrows[("granular", 0.5)]["prompts"])
         log(f"moe {qtag} served tokens == plain monolithic greedy under "
             f"teacher forcing (max logit gap {qgap:.4f})")
+        tiers = moe_tier_runs(serve, qcfg, qparams, qtot, qtag) \
+            if qtag == "int8-experts" else None
         out["quant"][qtag] = {
             "rows": {f"{t} {f}x": {k: v for k, v in r.items()
                                    if k not in ("tokens", "prompts")}
                      for (t, f), r in qrows.items()},
             "kernel": kname, "launches": want[kname],
             "variants": variants[kname], "weight_bytes": qtot,
-            "teacher_forced_gap": qgap}
+            "teacher_forced_gap": qgap, "forced_prefill_tiers": tiers}
         del qparams
         free_cuda()
     # ---- phase 14, MoE: faults on phase 11's weights and wave, last: a
@@ -2600,6 +2626,27 @@ def moe_path(link):
     del params
     free_cuda()
     return out
+
+
+def moe_tier_runs(serve, cfg, params, tot, tag):
+    """Granular 0.5x with every prefill forced onto tier 32, then 64 (the
+    MoE tier item of ROADMAP.md: AI1's int8-expert tokens changed with the
+    prefill tier). Outside the counted runs; printed, not gated."""
+    from repro_torch.core import planner
+    real = planner.Schedule.pick_prefill_tier
+    tokens = {}
+    for tier in (32, 64):
+        planner.Schedule.pick_prefill_tier = \
+            lambda self, *a, _t=tier, **kw: _t
+        try:
+            tokens[tier] = serve(cfg, params, tot, f"{tag} granular tier "
+                                 f"{tier}", 0.5)["tokens"]
+        finally:
+            planner.Schedule.pick_prefill_tier = real
+    equal = tokens[32] == tokens[64]
+    log(f"moe {tag} granular 0.5x, prefill forced to tier 32 and to 64: "
+        f"tokens identical {equal}")
+    return {"tokens_identical": equal}
 
 
 # ------------------------------------------------------------ phase 13
@@ -3491,6 +3538,527 @@ def gateway_path(cfg, params, db, system, total):
 
 
 
+# ------------------------------------------------------------ phase 16
+FAMILY_ARCHS = ("zamba2-7b", "xlstm-125m", "musicgen-medium")
+# the wave: FAMILY_B prompts of PROMPT_LEN tokens (frames for musicgen),
+# NEW_TOKENS greedy tokens each
+FAMILY_B = 4
+# long runs: (prompt, decode steps); the teacher-forced forward covers
+# prompt + steps tokens = 4096. zamba2's prompt is 15 SSD chunks (every
+# SSD length must be under 256 or a multiple of it)
+FAMILY_LONG = {"zamba2-7b": (3840, 256), "musicgen-medium": (4080, 16)}
+FAMILY_T = 4096
+SSD_ON_CARD = (("zamba2-7b layer", 1, 1024, 112, 64, 64, False),
+               ("xlstm-125m mLSTM", 1, 1024, 8, 193, 192, True))
+SSD_TOL = 2e-4      # the reference's own (tests/test_ssm.py)
+# zamba2's T = 4096 forward through K4 against the same forward with the
+# plain attention, in f32: max |diff| within 2e-2 of max |logit|
+FLASH_PLAIN_MAX = 2e-2
+# families whose bf16 cached path departs from their cache-less forward by
+# more than TF_GAP in the reference itself: zamba2's 81 bf16 layers carry
+# one rounding flip of the stepped SSD against the chunked one (or of a
+# product's f32 sum order) to logit gaps of 0.6 in the JAX package's own
+# decode against its own forward (81 layers at d = 256 on the CPU,
+# tests/test_torch_families.py::test_zamba2_full_depth_drift). Their
+# served tokens are gated in f32 (the bf16 weights cast, f32 KV caches),
+# where the same teacher forcing holds to F32_TF_GAP; in bf16 the gap is
+# printed
+TF_DRIFT_ARCHS = ("zamba2-7b",)
+F32_TF_GAP = 1e-2
+
+
+def family_transient_bytes(cfg, B, T, S):
+    """The most a monolithic pass of (B, T) tokens against a cache of S
+    positions holds besides the weights and the cache: the logits of all
+    T positions (bf16, plus the last row in f32 for the greedy pick) and
+    twice the largest one layer's working set (its inputs, outputs and
+    intermediates, each counted once: the allocator may keep the previous
+    layer's while the next one's are made), plus ``ACT_ALLOWANCE`` for the
+    cuBLAS workspace and the allocator's rounding. A layer's working set:
+    attention: q, k, v, o and the residual in bf16, the (H, T, S) f32
+    scores three times (scores, softmax, mask) and p in bf16, the FFN's
+    hidden three times; mamba: its projections (z, xBC, dt), the conv's
+    extended input and K products, and the SSD in f32: x, b, c, two
+    (H, chunk, chunk) buffers per chunk (segsum and its product, in
+    place), y_diag, y_off and the per-chunk states twice; mLSTM: the same
+    SSD at its per-head widths plus q, k, v and the up projection; sLSTM:
+    the (T, 4d) pre-activations and T f32 state rows."""
+    d, V, nq = cfg.d_model, cfg.vocab, max(cfg.n_codebooks, 1)
+    rows = B * T
+    logits = rows * nq * V * 2 + B * nq * V * 4
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    attn = (rows * (4 * H * hd + d) * 2 + B * H * T * S * (3 * 4 + 2)
+            + 3 * rows * max(cfg.d_ff, 1) * 2)
+
+    def ssd(Hh, P, N, per_head):
+        c = min(256, T)
+        nC = -(-T // c)
+        bc = rows * (Hh * N if per_head else N) * 2 * 4
+        return (rows * Hh * P * 4 * 3 + bc + 2 * B * nC * Hh * c * c * 4
+                + 2 * B * (nC + 1) * Hh * P * N * 4)
+
+    work = attn
+    if cfg.family == "hybrid":
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        C = di + 2 * n
+        mamba = (rows * (di + C + h) * 2 + B * (T + cfg.ssm_conv) * C * 2
+                 * (cfg.ssm_conv + 1)
+                 + ssd(h, cfg.ssm_head_dim, n, False))
+        work = max(attn, mamba)
+    elif cfg.family == "ssm":
+        di = cfg.ssm_expand * d
+        hd_m = cfg.ssm_head_dim
+        mlstm = rows * 6 * di * 2 + ssd(di // hd_m, hd_m + 1, hd_m, True)
+        slstm = rows * 4 * d * (2 + 4) + rows * d * 4 * 3
+        work = max(mlstm, slstm)
+    return logits + 2 * work + ACT_ALLOWANCE
+
+
+def _family_prompts(cfg, gen, B, T):
+    import torch
+    shape = (B, T, cfg.n_codebooks) if cfg.n_codebooks else (B, T)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _tf_gap(logits, tokens):
+    """Largest (top logit - the token's logit) over positions (and
+    codebooks): logits (N, [nq,] V), tokens (N, [nq])."""
+    import torch
+    z = logits.float().reshape(-1, logits.shape[-1])
+    t = tokens.reshape(-1).to(torch.int64)
+    picked = z.gather(1, t[:, None])[:, 0]
+    return (z.max(dim=1).values - picked).max().item()
+
+
+def greedy_serve(model, params, prompts, steps, max_seq, cache_dtype=None):
+    """``Model.prefill`` then ``steps`` greedy ``decode_step``s into a
+    fresh cache (its KV in ``cache_dtype`` when given); returns (the
+    steps + 1 tokens per sequence (B, steps + 1[, nq]), prefill s, decode
+    s, cache bytes)."""
+    import torch
+    from repro_torch.models.common import greedy_token, tree_nbytes
+    B, T = prompts.shape[:2]
+    cache = model.init_cache(B, max_seq) if cache_dtype is None else \
+        model.impl.init_cache(model.cfg, B, max_seq, dtype=cache_dtype)
+    cache_bytes = tree_nbytes(cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": prompts}, cache)
+    gen = [greedy_token(last[:, -1])]
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in range(steps):
+        logits, cache = model.decode_step(
+            params, {"tokens": gen[-1][:, None]}, cache, T + s)
+        gen.append(greedy_token(logits[:, -1]))
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    del cache, last
+    return torch.stack(gen, dim=1), t_pre, t_dec, cache_bytes
+
+
+def family_forward(model, params, tokens):
+    """One cache-less forward; returns (logits, seconds, peak bytes)."""
+    import torch
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, _ = model.apply(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def family_wave(arch, cfg, model, params, weight_bytes, gap_limit=TF_GAP,
+                cache_dtype=None):
+    """FAMILY_B prompts of PROMPT_LEN, NEW_TOKENS greedy tokens each, the
+    peak against weights + cache + ``family_transient_bytes`` (bf16); the
+    tokens under teacher forcing against a cache-less forward, within
+    ``gap_limit`` (printed only when None)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompts = _family_prompts(cfg, gen, FAMILY_B, PROMPT_LEN)
+    S = PROMPT_LEN + NEW_TOKENS
+    free_cuda()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t_pre, t_dec, cache_bytes = greedy_serve(
+        model, params, prompts, NEW_TOKENS - 1, S, cache_dtype)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches()
+    if any(counts.values()):
+        raise AssertionError(f"{arch} wave: kernel launches {counts} (the "
+                             "monolithic path at 64 tokens runs none)")
+    allowance = family_transient_bytes(cfg, FAMILY_B, PROMPT_LEN, S)
+    bound_b = base + cache_bytes + allowance
+    full = torch.cat([prompts, toks[:, :-1]], dim=1)
+    logits, _, _ = family_forward(model, params, full)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} wave: non-finite forward logits")
+    gap = max(_tf_gap(logits[b, PROMPT_LEN - 1:], toks[b])
+              for b in range(FAMILY_B))
+    del logits
+    n_tok = FAMILY_B * (NEW_TOKENS - 1)
+    row = {"prefill_s": t_pre, "decode_s": t_dec,
+           "decode_tok_s": n_tok / t_dec,
+           "decode_steps_s": (NEW_TOKENS - 1) / t_dec,
+           "peak": peak, "weights": weight_bytes,
+           "baseline_other": base - weight_bytes, "cache": cache_bytes,
+           "transient_allowance": allowance, "bound": bound_b,
+           "gap_teacher_forced": gap}
+    bf16 = cfg.dtype == "bfloat16"
+    log(f"{arch} {cfg.dtype} wave of {FAMILY_B} x {PROMPT_LEN} "
+        f"{'frames' if cfg.n_codebooks else 'tokens'} + {NEW_TOKENS} new: "
+        f"prefill {t_pre:.4f} s, decode {row['decode_tok_s']:.2f} tok/s "
+        f"({row['decode_steps_s']:.2f} steps/s); peak {peak} B "
+        + (f"<= weights {weight_bytes} + cache {cache_bytes} + transients "
+           f"{allowance} (+ {base - weight_bytes} B held before) = "
+           f"{bound_b}" if bf16 else "(not gated)")
+        + f"; the {FAMILY_B} x {NEW_TOKENS} greedy tokens within {gap:.4f}"
+        + (f" <= {gap_limit}" if gap_limit is not None else
+           " (printed: see TF_DRIFT_ARCHS)")
+        + " of the no-cache forward's top logit under teacher forcing")
+    if bf16 and peak > bound_b:
+        raise AssertionError(f"{arch} wave: peak {peak} > bound {bound_b}")
+    if gap_limit is not None and gap > gap_limit:
+        raise AssertionError(f"{arch} {cfg.dtype} wave: teacher-forced gap "
+                             f"{gap:.4f} > {gap_limit}")
+    return row
+
+
+def family_long(arch, cfg, model, params):
+    """One sequence: prefill + greedy decode to FAMILY_T tokens, and the
+    cache-less forward at FAMILY_T through K4 against it (teacher
+    forcing; printed only for ``TF_DRIFT_ARCHS``), each K4 launch within
+    the bf16-p limit. Returns (results, the FAMILY_T tokens)."""
+    import torch
+    prompt_len, steps = FAMILY_LONG[arch]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = _family_prompts(cfg, gen, 1, prompt_len)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t_pre, t_dec, _ = greedy_serve(model, params, prompt, steps,
+                                         prompt_len + steps)
+    peak_serve = torch.cuda.max_memory_allocated()
+    if any(read_launches().values()):
+        raise AssertionError(f"{arch} long run: kernel launches "
+                             f"{read_launches()} in prefill / decode")
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    assert full.shape[1] == FAMILY_T
+    logits, t_fwd, peak_fwd, counts = k4_forward(arch, cfg, model, params,
+                                                 full)
+    gap = _tf_gap(logits[0, prompt_len - 1:], toks[0])
+    gated = arch not in TF_DRIFT_ARCHS
+    out = {"prompt": prompt_len, "decode_steps": steps, "prefill_s": t_pre,
+           "decode_tok_s": steps / t_dec, "serve_peak": peak_serve,
+           "forward_T": FAMILY_T, "forward_s": t_fwd,
+           "forward_peak": peak_fwd, "k4_launches": counts["K4"],
+           "k4_variants": read_variants()["K4"], "gap_teacher_forced": gap}
+    log(f"{arch} long run: prefill {prompt_len} in {t_pre:.4f} s, "
+        f"{steps} decode steps {out['decode_tok_s']:.2f} tok/s, peak "
+        f"{peak_serve} B; forward at T={FAMILY_T}: K4 launches "
+        f"{counts['K4']} (by kernel {out['k4_variants']}), {t_fwd:.4f} s, "
+        f"peak {peak_fwd} B; the {steps + 1} greedy tokens within "
+        f"{gap:.4f}" + (f" <= {TF_GAP}" if gated else
+                        " (printed: see TF_DRIFT_ARCHS)")
+        + " of its top logit under teacher forcing")
+    if gated and gap > TF_GAP:
+        raise AssertionError(f"{arch} long run: teacher-forced gap "
+                             f"{gap:.4f} > {TF_GAP}")
+    if arch in TF_DRIFT_ARCHS:
+        out.update(flash_vs_plain(arch, model, params, full, logits))
+    del logits
+    layers = layer_excess(lambda: family_forward(model, params, full))
+    if len(layers) != counts["K4"] or not max(layers) <= 1.0:
+        raise AssertionError(f"{arch} forward: K4 launches at {layers} x "
+                             "the bf16-p limit")
+    out["k4_p_round_excess"] = max(layers)
+    log(f"{arch} forward at T={FAMILY_T}: each of the {counts['K4']} K4 "
+        f"launches at most {max(layers):.3f}x the bf16-p limit on its own "
+        f"q, k, v (<= 1)")
+    free_cuda()
+    return out, full
+
+
+def k4_forward(arch, cfg, model, params, tokens):
+    """The cache-less forward at FAMILY_T: one K4 launch per attention
+    (the hybrid's shared block per group), on the tensor cores in bf16
+    and the CUDA cores in f32, and no other kernel; returns (logits,
+    seconds, peak bytes, launches)."""
+    import torch
+    n_k4 = cfg.n_layers // cfg.shared_attn_every \
+        if cfg.family == "hybrid" else cfg.n_layers
+    variant = "mma" if cfg.dtype == "bfloat16" else "fma"
+    reset_launches()
+    logits, t_fwd, peak = family_forward(model, params, tokens)
+    counts, variants = read_launches(), read_variants()["K4"]
+    want = {name: 0 for name in counts}
+    want["K4"] = n_k4
+    if counts != want or variants[variant] != n_k4:
+        raise AssertionError(f"{arch} {cfg.dtype} forward at "
+                             f"T={tokens.shape[1]}: launches {counts} by "
+                             f"kernel {variants}, want {want} all {variant}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} forward: non-finite logits")
+    return logits, t_fwd, peak, counts
+
+
+def flash_vs_plain(arch, model, params, tokens, logits):
+    """The same forward with ``attend`` on its plain version: no K4
+    launch, a peak above the flash forward's; its logits against the K4
+    forward's ``logits``, gated in f32 (max |diff| <= FLASH_PLAIN_MAX of
+    max |logit|) and printed in bf16 (see TF_DRIFT_ARCHS)."""
+    import torch
+    from repro_torch.models import attention
+    f32 = model.cfg.dtype == "float32"
+    peak_fwd = torch.cuda.max_memory_allocated()
+    threshold = attention.FLASH_THRESHOLD
+    attention.FLASH_THRESHOLD = 1 << 40
+    reset_launches()
+    try:
+        plain, t_plain, peak_plain = family_forward(model, params, tokens)
+    finally:
+        attention.FLASH_THRESHOLD = threshold
+    if read_launches()["K4"] != 0:
+        raise AssertionError("plain forward launched K4")
+    if peak_fwd >= peak_plain:
+        raise AssertionError(f"{arch}: K4 forward peak {peak_fwd} >= plain "
+                             f"{peak_plain}")
+    mx, rms = encode_gaps(logits, plain)
+    del plain
+    tag = f"{arch} {model.cfg.dtype} forward at T={tokens.shape[1]}"
+    log(f"{tag} with the plain attention: no K4 launch, {t_plain:.4f} s, "
+        f"peak {peak_plain} B; K4 against plain logits: max |diff| / max "
+        f"|logit| {mx:.3e}" + (f" <= {FLASH_PLAIN_MAX}" if f32 else "")
+        + f", rms |diff| / rms |logit| {rms:.3e}"
+        + ("" if f32 else " (bf16: printed, see TF_DRIFT_ARCHS)"))
+    if f32 and not mx <= FLASH_PLAIN_MAX:
+        raise AssertionError(f"{tag}: K4 vs plain logits {mx:.3e} > "
+                             f"{FLASH_PLAIN_MAX}")
+    return {f"{model.cfg.dtype}_plain_forward_s": t_plain,
+            f"{model.cfg.dtype}_plain_forward_peak": peak_plain,
+            f"{model.cfg.dtype}_flash_vs_plain_max": mx,
+            f"{model.cfg.dtype}_flash_vs_plain_rms": rms}
+
+
+def family_f32(arch, cfg, params, tokens):
+    """``TF_DRIFT_ARCHS``: the bf16 weights cast to f32, served as the
+    wave with f32 KV caches and teacher-forced within F32_TF_GAP; the
+    FAMILY_T forward through K4 (CUDA cores) against the plain attention's
+    within FLASH_PLAIN_MAX. Frees ``params`` (the bf16 tree) on the way."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map, tree_nbytes
+    import torch
+    cfg32 = cfg.replace(dtype="float32")
+    model = build_model(cfg32)
+    p32 = tree_map(lambda t: t.float(), params)
+    params.clear()
+    free_cuda()
+    wave = family_wave(arch, cfg32, model, p32, tree_nbytes(p32),
+                       gap_limit=F32_TF_GAP, cache_dtype=torch.float32)
+    logits, t_fwd, peak, counts = k4_forward(arch, cfg32, model, p32, tokens)
+    log(f"{arch} float32 forward at T={tokens.shape[1]}: K4 launches "
+        f"{counts['K4']} (by kernel {read_variants()['K4']}), {t_fwd:.4f} "
+        f"s, peak {peak} B")
+    out = {"wave": wave, "forward_s": t_fwd, "forward_peak": peak,
+           **flash_vs_plain(arch, model, p32, tokens, logits)}
+    del logits, p32
+    free_cuda()
+    return out
+
+
+def ssd_on_card():
+    """The SSD scan (``models.ssm.ssd``, f32) at the families' per-layer
+    shapes against the sequential recurrence in f64, on the card."""
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import ssm
+    resolve_device(None)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for tag, B, T, H, P, N, per_head in SSD_ON_CARD:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = rnd(B, T, H, P) * 0.5
+        a = -rnd(B, T, H).abs() * 0.3
+        b = rnd(*((B, T, H, N) if per_head else (B, T, N))) * 0.5
+        c = rnd(*((B, T, H, N) if per_head else (B, T, N))) * 0.5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, S = ssm.ssd(x, a, b, c)
+        torch.cuda.synchronize()
+        t_ssd = time.perf_counter() - t0
+        f64 = torch.float64
+        St = torch.zeros((B, H, P, N), dtype=f64, device="cuda")
+        ys = []
+        for t in range(T):
+            # b, c at step t as (B, H or 1, 1, N)
+            bt = (b[:, t] if per_head else b[:, t, None]).to(f64)[:, :, None]
+            ct = (c[:, t] if per_head else c[:, t, None]).to(f64)[:, :, None]
+            St = torch.exp(a[:, t].to(f64))[..., None, None] * St \
+                + x[:, t].to(f64)[..., None] * bt
+            ys.append((St * ct).sum(-1))
+        yr = torch.stack(ys, dim=1)
+        errs = []
+        for got, ref in ((y, yr), (S, St)):
+            err = (got.to(f64) - ref).abs()
+            lim = SSD_TOL + SSD_TOL * ref.abs()
+            if bool((err > lim).any()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"SSD {tag}: max |err| "
+                                     f"{err.max().item():.3e} beyond "
+                                     f"{SSD_TOL}")
+            errs.append(err.max().item())
+        out.append({"tag": tag, "shape": [B, T, H, P, N],
+                    "per_head": per_head, "max_abs_err_y": errs[0],
+                    "max_abs_err_state": errs[1], "seconds": t_ssd})
+        log(f"SSD {tag} (B, T, H, P, N) = {(B, T, H, P, N)}, "
+            f"{'per-head' if per_head else 'shared'} b/c: against the "
+            f"sequential f64 recurrence max |err| y {errs[0]:.3e}, final "
+            f"state {errs[1]:.3e} within rtol = atol = {SSD_TOL}; "
+            f"{t_ssd:.4f} s")
+        del x, a, b, c, y, S, St, ys, yr
+    free_cuda()
+    return out
+
+
+def family_planning(link):
+    """Each family's full config planned on the h100 at 0.5x its weight
+    bytes by a planning-only Session, whose executor raises."""
+    from repro_torch import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core import (SYSTEMS, InferenceSetting, build_graph,
+                                  run_install)
+    from repro_torch.core.graphing import total_weight_bytes
+    system = SYSTEMS["h100"].with_(link_gbps=link)
+    db = run_install(system)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        setting = InferenceSetting(batch=FAMILY_B, context=FAMILY_T)
+        budget = total_weight_bytes(build_graph(cfg, wdtype=2)) // 2
+        sess = Session.open(cfg, system, budget, setting, db=db)
+        est = sess.estimates(FAMILY_T)
+        try:
+            sess.executor
+        except NotImplementedError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{arch}: the planning-only session "
+                                 "built an executor")
+        out[arch] = {"sub_layers": len(sess.subs), "budget": budget,
+                     "estimates": est}
+        log(f"{arch} planning-only session, h100, 0.5x ({budget} B): "
+            f"{len(sess.subs)} sub-layers, pinned {est['pinned_bytes']} B, "
+            f"est TTFT({FAMILY_T}) {est['ttft_s']:.4f} s, est "
+            f"{est['tps']:.2f} tok/s; executor: {refusal}")
+    return out
+
+
+def row_probe():
+    """Whether the prefill's ops on the card give a row the same bits
+    whatever the chunk's row count: at qwen30b-a3b's widths, rows of a
+    64-row chunk against the same rows as a 32-row chunk (prefill tiers
+    64 and 32): ``torch.matmul`` at the q, k / v and o projections (bf16),
+    the router's logits (K1 in f32), the router's softmax and the gates'
+    sum (f32), ``rmsnorm`` over d and per head (qk-norm), and
+    ``attention.attend_cached`` for the first and the second 32 rows
+    (32/4 heads of 128 against a written cache of 256). Printed (the MoE
+    tier item of ROADMAP.md); outside every counted run."""
+    import torch
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+    from repro_torch.models import attention
+    from repro_torch.models.common import rmsnorm
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dtype)
+    x = rnd(64, 2048)
+    q, ck, cv = rnd(1, 64, 32, 128), rnd(1, 4, 256, 128), rnd(1, 4, 256, 128)
+    w = {n: rnd(k, m, scale=k ** -0.5) for n, (k, m) in
+         {"q": (2048, 4096), "kv": (2048, 512), "o": (4096, 2048)}.items()}
+    router = rnd(2048, 128, scale=2048 ** -0.5, dtype=torch.float32)
+    logits = rnd(64, 128, dtype=torch.float32)
+    scale, hscale = rnd(2048), rnd(128)
+    ops = {
+        "matmul q (2048, 4096)": lambda a: a @ w["q"],
+        "matmul k/v (2048, 512)": lambda a: a @ w["kv"],
+        "matmul o (4096, 2048)": lambda a: a.repeat(1, 2) @ w["o"],
+        "router K1 f32 (2048, 128)": lambda a: streamed_matmul(
+            a.float().contiguous(), router),
+        "softmax f32 (., 128)": lambda a: torch.softmax(
+            logits[:a.shape[0]], dim=-1),
+        "gates sum f32 (., 8)": lambda a: torch.softmax(
+            logits[:a.shape[0]], dim=-1)[:, :8].sum(-1, keepdim=True),
+        "rmsnorm (., 2048)": lambda a: rmsnorm(a, scale, 1e-6),
+        "qk-norm (., 32, 128)": lambda a: rmsnorm(
+            (a @ w["q"]).reshape(-1, 32, 128), hscale, 1e-6),
+    }
+    out = {}
+
+    def report(name, full, part):
+        diff = int((full != part).sum().item())
+        out[name] = diff
+        log(f"rows of a 64-row chunk against a 32-row chunk, {name}: "
+            f"bit-equal {diff == 0} ({diff} of {part.numel()} elements "
+            f"differ, max |diff| "
+            f"{(full.float() - part.float()).abs().max().item():.3e})")
+    for name, fn in ops.items():
+        report(name, fn(x)[:32], fn(x[:32]))
+    report("attend_cached rows 0..31",
+           attention.attend_cached(q, ck, cv, 0)[:, :32],
+           attention.attend_cached(q[:, :32], ck, cv, 0))
+    report("attend_cached rows 32..63",
+           attention.attend_cached(q, ck, cv, 0)[:, 32:],
+           attention.attend_cached(q[:, 32:], ck, cv, 32))
+    return out
+
+
+def families_path(link):
+    """Phase 16: zamba2-7b, xlstm-125m and musicgen-medium at full width
+    and depth on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_nbytes
+    out = {"ssd": ssd_on_card(), "launches": {}, "variants": {}}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        free_cuda()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        wbytes = tree_nbytes(params)
+        log(f"{arch} ({cfg.family}, {cfg.n_layers} layers, d={cfg.d_model},"
+            f" vocab {cfg.vocab}"
+            f"{', %d codebooks' % cfg.n_codebooks if cfg.n_codebooks else ''}"
+            f"): {wbytes} B of bf16 weights drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        drift = arch in TF_DRIFT_ARCHS
+        row = {"weights": wbytes, "wave": family_wave(
+            arch, cfg, model, params, wbytes,
+            gap_limit=None if drift else TF_GAP)}
+        if arch in FAMILY_LONG:
+            row["long"], tokens = family_long(arch, cfg, model, params)
+            out["launches"][f"{arch} forward_T{FAMILY_T}"] = \
+                row["long"]["k4_launches"]
+            out["variants"][f"{arch} forward_T{FAMILY_T}"] = \
+                row["long"]["k4_variants"]
+            if drift:
+                row["float32"] = family_f32(arch, cfg, params, tokens)
+        out[arch] = row
+        del params, model
+        free_cuda()
+    out["planning"] = family_planning(link)
+    out["row_probe"] = row_probe()
+    return out
+
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -3568,35 +4136,55 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    laps = {"_last": t_start}
+
+    def lap(name):
+        """Seconds since the previous lap, logged and kept by phase."""
+        now = time.perf_counter()
+        laps[name] = now - laps["_last"]
+        laps["_last"] = now
+        log(f"[{now - t_start:.1f} s] {name}: {laps[name]:.1f} s")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     build_kernels()
+    lap("build")
     kern = kernel_phase()
     free_cuda()
     qkern = quant_kernel_phase()
     free_cuda()
+    lap("K1-K3 checks")
     fkern = flash_kernel_phase()
+    lap("K4 checks")
 
     def headline(shapes):
         return next(s for s in shapes if s["M"] == 4 and s["K"] == 896)
 
     main = main_path()
     free_cuda()
+    lap("phases 3-7, 12")
     vision = vision_path()
     language = language_path()
     planning = vlm_planning(main["link_gbps"])
     free_cuda()
+    lap("phases 8-10")
     moe = moe_path(main["link_gbps"])
     free_cuda()
+    lap("phase 11")
     draft_cfg, draft_params = main.pop("model")
     spec = spec_path(main["link_gbps"], draft_cfg, draft_params)
     free_cuda()
+    lap("phase 13")
     db, system, total = main.pop("setup")
     faults = fault_path(draft_cfg, draft_params, db, system, total,
                         main.pop("base_01"))
     gateway = gateway_path(draft_cfg, draft_params, db, system, total)
+    del draft_params, db
+    free_cuda()
+    lap("phases 14-15")
+    families = families_path(main["link_gbps"])
+    lap("phase 16")
     faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
@@ -3608,6 +4196,9 @@ def main() -> int:
                                 fkern["block_q_bit_equal"]},
                     "moe": moe, "paged": main["paged"], "spec": spec,
                     "faults": faults, "gateway": gateway,
+                    "families": families,
+                    "phase_seconds": {k: v for k, v in laps.items()
+                                      if k != "_last"},
                     "seconds": time.perf_counter() - t_start}))
     # kernel -> (the MoE run's tag, its results)
     moe_q = {kname: (qtag, moe["quant"][qtag])
@@ -3635,7 +4226,8 @@ def main() -> int:
                      headline(qkern["int4"]["shapes"]),
                      source="streamed_matmul_mma"),
         kernel_entry("flash_attention", "flash_attention.py:104",
-                     vision["launches"] + language["launches"],
+                     vision["launches"] + language["launches"]
+                     + sum(families["launches"].values()),
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
                      source="flash_attention_mma")]
@@ -3672,11 +4264,13 @@ def main() -> int:
     kernels[-1].update({
         "launches_by_path": {
             "vision_720p_encode": vision["launches"],
-            f"language_forward_T{language['T']}": language["launches"]},
+            f"language_forward_T{language['T']}": language["launches"],
+            **families["launches"]},
         "launches_by_variant": {
             "vision_720p_encode": vision["variant_launches"],
             f"language_forward_T{language['T']}":
-                language["variant_launches"]},
+                language["variant_launches"],
+            **families["variants"]},
         "checked_shapes": fkern["checked"],
         "block_q_bit_equal": fkern["block_q_bit_equal"],
         "block_q_bit_equal_bf16": fkern["block_q_bit_equal_bf16"]})

@@ -9,30 +9,45 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer, xlstm
+
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "audio": transformer,
+    "hybrid": hybrid,
+    "ssm": xlstm,
+}
 
 
 @dataclass
 class Model:
     cfg: ModelConfig
 
+    @property
+    def impl(self):
+        """The family's model module (``_FAMILY_MODULES``)."""
+        return _FAMILY_MODULES[self.cfg.family]
+
     def init(self, gen: torch.Generator):
-        return transformer.init_params(self.cfg, gen)
+        return self.impl.init_params(self.cfg, gen)
 
     def init_cache(self, batch, max_seq, device=None):
-        return transformer.init_cache(self.cfg, batch, max_seq, device=device)
+        return self.impl.init_cache(self.cfg, batch, max_seq, device=device)
 
-    def module(self, params) -> transformer.Transformer:
-        return transformer.Transformer(self.cfg, params)
+    def module(self, params) -> torch.nn.Module:
+        """The family's ``nn.Module`` over ``params``."""
+        return self.impl.module(self.cfg, params)
 
     def apply(self, params, batch, cache=None, cache_pos=None):
-        return transformer.forward(params, self.cfg, batch, cache=cache,
-                                   cache_pos=cache_pos)
+        return self.impl.forward(params, self.cfg, batch, cache=cache,
+                                 cache_pos=cache_pos)
 
     # ---------------- serving steps ----------------
     def prefill(self, params, batch, cache):
         """Write the prompt into the cache from position 0 (in place);
-        returns (last_logits (B, 1, vocab), cache)."""
+        returns (last_logits (B, 1, ...), cache)."""
         logits, cache = self.apply(params, batch, cache=cache, cache_pos=0)
         return logits[:, -1:], cache
 
@@ -62,7 +77,9 @@ def params_from_numpy(tree):
     """The JAX package's param tree, given as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree: same keys,
     same stacked per-layer layout, same bits — MoE expert stacks with
-    their int8 / packed int4 codes, scales and zero-points included."""
+    their int8 / packed int4 codes, scales and zero-points included, and
+    the hybrid's ``groups`` / ``shared`` / ``tail`` and the xLSTM's
+    ``pairs`` (``m`` / ``s``) trees."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree))

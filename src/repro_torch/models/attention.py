@@ -57,11 +57,11 @@ def init_attn_params(gen, cfg, dtype):
 
 def qkv_project(params, cfg, x, positions):
     """x: (B, T, D) -> q (B,T,H,hd), k,v (B,T,KV,hd) with rope applied.
-    positions: (B, T), or (3, B, T) for M-RoPE."""
-    if cfg.pos not in ("rope", "mrope", "none"):
-        raise NotImplementedError(f"pos={cfg.pos!r} is not ported yet "
-                                  "(sinusoidal positions land with the "
-                                  "audio slice)")
+    positions: (B, T), or (3, B, T) for M-RoPE. ``"sin"`` positions are
+    added at the embedding and ``"none"`` has none, so both leave q and k
+    as projected."""
+    if cfg.pos not in ("rope", "mrope", "sin", "none"):
+        raise ValueError(f"unknown pos={cfg.pos!r}")
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ params["wq"]

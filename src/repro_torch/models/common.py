@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, rotary positions (RoPE, M-RoPE), init,
-greedy pick."""
+"""Shared layer primitives: norms, positions (RoPE, M-RoPE, sinusoidal),
+init, greedy pick."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,6 +30,27 @@ def tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def stacked(make, n):
+    """``n`` trees from ``make()`` stacked along a new leading axis (the
+    reference's per-layer layout), each leaf one allocation written as the
+    trees are made."""
+    out = None
+    for i in range(n):
+        t = make()
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), t)
+        _assign(out, t, i)
+    return out
+
+
+def _assign(stack, tree, i):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _assign(stack[k], v, i)
+        else:
+            stack[k][i] = v
+
+
 # ---------------------------------------------------------------- sampling
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     """Deterministic greedy pick over a logits row (or batch of rows).
@@ -47,6 +68,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x = x.to(torch.float32)
     y = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (y * scale.to(torch.float32)).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
 # ---------------------------------------------------------------- positions
@@ -115,6 +146,26 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+_SIN_FREQS = {}   # (half, device) -> the sinusoidal frequencies
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """AudioCraft-style sin/cos embeddings, (..., T) -> (..., T, d) in f32.
+    The frequencies are the reference's f32 ``exp(-log(10000) * i /
+    half)``, computed in that order on the positions' device, once (as
+    ``_device_freqs``: a decode step adds them)."""
+    half = d_model // 2
+    key = (half, positions.device)
+    if key not in _SIN_FREQS:
+        i = torch.arange(half, dtype=torch.float32, device=positions.device)
+        _SIN_FREQS[key] = torch.exp(
+            torch.tensor(-np.log(10000.0), dtype=torch.float32,
+                         device=positions.device) * i / half)
+    ang = positions[..., None].to(torch.float32) * _SIN_FREQS[key]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------- init

@@ -1,0 +1,160 @@
+"""zamba2-style hybrid: Mamba2 backbone + one shared transformer block.
+
+Layout: ``n_layers`` Mamba2 layers; after every ``shared_attn_every``-th
+mamba layer the single *shared* transformer block (attention + FFN, one
+set of weights) is applied, each application with its own KV cache.
+
+The parameters keep the reference's stacked layout: ``groups`` holds the
+mamba layers of the full groups as (n_grp, per, ...) leaves, ``tail`` the
+leftover layers as (rem, ...) leaves, ``shared`` the one block. The
+reference scans over groups and layers; here they are loops over the
+stacked slices. The cache holds every layer's mamba state, (n_grp * per,
+...) for the groups and (rem, ...) for the tail, and one KV cache per
+shared-block application, (n_grp, B, KV, S, hd); ``forward`` writes it in
+place and returns it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp, ssm
+from repro_torch.models.common import (dense_init, dtype_of, rmsnorm,
+                                       stacked, tree_map)
+from repro_torch.models.transformer import Monolithic, layer_slice
+
+
+def _n_groups(cfg):
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def _n_rem(cfg):
+    return cfg.n_layers - _n_groups(cfg) * cfg.shared_attn_every
+
+
+def _mamba_layer_init(gen, cfg, dtype):
+    return {"ln": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+            "mamba": ssm.init_mamba_params(gen, cfg, dtype)}
+
+
+def init_params(cfg, gen: torch.Generator):
+    """Seeded random weights, every leaf made on ``gen``'s device."""
+    dtype = dtype_of(cfg)
+    n_grp, rem = _n_groups(cfg), _n_rem(cfg)
+    per = cfg.shared_attn_every
+    dev = gen.device
+    p = {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), 1, dtype),
+        "groups": tree_map(
+            lambda t: t.view((n_grp, per) + tuple(t.shape[1:])),
+            stacked(lambda: _mamba_layer_init(gen, cfg, dtype),
+                     n_grp * per)),
+        "shared": {
+            "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+            "attn": attn.init_attn_params(gen, cfg, dtype),
+            "ffn": mlp.init_ffn_params(gen, cfg, dtype),
+        },
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        "unembed": dense_init(gen, (cfg.d_model, cfg.vocab), 0, dtype),
+    }
+    if rem:
+        p["tail"] = stacked(lambda: _mamba_layer_init(gen, cfg, dtype),
+                             rem)
+    return p
+
+
+def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
+    """Mamba states for every layer (zeros) + a zero-filled KV cache per
+    shared-block application, on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    n_grp, rem = _n_groups(cfg), _n_rem(cfg)
+    per = cfg.shared_attn_every
+
+    def states(n):
+        s = ssm.init_mamba_state(cfg, batch, device)
+        return {k: v[None].repeat((n,) + (1,) * v.ndim)
+                for k, v in s.items()}
+
+    kv = (n_grp, batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    cache = {
+        "groups": states(n_grp * per),
+        "kv_k": torch.zeros(kv, dtype=dtype, device=device),
+        "kv_v": torch.zeros(kv, dtype=dtype, device=device),
+    }
+    if rem:
+        cache["tail"] = states(rem)
+    return cache
+
+
+def _mamba_layer(lp, cfg, x, states, i):
+    """One residual mamba layer; ``states`` (stacked, or None) is read at
+    row ``i`` and written there in place."""
+    state = None if states is None else {k: v[i] for k, v in states.items()}
+    h, new = ssm.mamba_block(lp["mamba"], cfg,
+                             rmsnorm(x, lp["ln"], cfg.norm_eps), state)
+    if states is not None:
+        for k, v in states.items():
+            v[i].copy_(new[k])
+    return x + h
+
+
+def _shared_block(sp, cfg, x, positions, cache_kv, cache_pos):
+    h, _ = attn.attention_block(sp["attn"], cfg,
+                                rmsnorm(x, sp["ln1"], cfg.norm_eps),
+                                positions, cache=cache_kv,
+                                cache_pos=cache_pos)
+    x = x + h
+    return x + mlp.ffn(sp["ffn"], cfg, rmsnorm(x, sp["ln2"], cfg.norm_eps))
+
+
+def _promote_conv(states, dtype):
+    """The reference's conv state takes the model's dtype on its first
+    write (a bf16 history concatenated with f32 inputs is f32); the port's
+    stacked state follows it once, so an f32 model keeps f32 history."""
+    if states is not None:
+        want = torch.promote_types(states["conv"].dtype, dtype)
+        if states["conv"].dtype != want:
+            states["conv"] = states["conv"].to(want)
+
+
+def forward(params, cfg, batch, cache=None, cache_pos=None):
+    """Returns (logits (B, T, V), cache). batch: {"tokens": (B, T)}; cache
+    (``init_cache``) is written in place."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    per = cfg.shared_attn_every
+    n_grp, rem = _n_groups(cfg), _n_rem(cfg)
+    x = params["embed"][tokens.to(torch.int64)]
+    base = cache_pos if cache_pos is not None else 0
+    positions = (base + torch.arange(T, device=x.device))[None, :] \
+        .expand(B, T)
+    gstates = None if cache is None else cache["groups"]
+    tstates = None if cache is None or not rem else cache["tail"]
+    _promote_conv(gstates, x.dtype)
+    _promote_conv(tstates, x.dtype)
+    for g in range(n_grp):
+        gp = layer_slice(params["groups"], g)
+        for j in range(per):
+            x = _mamba_layer(layer_slice(gp, j), cfg, x, gstates,
+                             g * per + j)
+        ckv = None if cache is None else {"k": cache["kv_k"][g],
+                                          "v": cache["kv_v"][g]}
+        x = _shared_block(params["shared"], cfg, x, positions, ckv,
+                          cache_pos)
+    for j in range(rem):
+        x = _mamba_layer(layer_slice(params["tail"], j), cfg, x, tstates, j)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["unembed"], cache
+
+
+class Hybrid(Monolithic):
+    """The monolithic hybrid model as an ``nn.Module``."""
+
+    def __init__(self, cfg, params):
+        super().__init__(cfg, params, forward)
+
+
+def module(cfg, params) -> Hybrid:
+    return Hybrid(cfg, params)

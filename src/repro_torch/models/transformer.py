@@ -1,5 +1,5 @@
-"""Decoder-only LM — dense, MoE and the VLM backbone: parameters, KV cache
-and the monolithic forward.
+"""Decoder-only LM — dense, MoE, the VLM backbone and audio: parameters,
+KV cache and the monolithic forward.
 
 An MoE layer holds ``"moe"`` (router and stacked experts, ``models.mlp``)
 where a dense layer holds ``"ffn"``.
@@ -8,6 +8,11 @@ The vlm family is the dense decoder with M-RoPE and a stub frontend, as in
 the reference: precomputed vision embeddings arrive in the batch
 (``vision_embeds``, placed in front of the token embeddings) with their 3D
 positions (``positions``, (3, B, T)); there are no vision parameters.
+The audio family (musicgen) is the dense decoder over ``n_codebooks``
+parallel EnCodec token streams, also with a stub frontend: tokens are
+(B, T, nq), the embedding sums the nq codebooks' rows in q order, the
+head is one unembedding per codebook (logits (B, T, nq, V)), and
+sinusoidal positions are added at the embedding.
 
 The parameters are a nested dict with the reference's layout: per-layer
 leaves are stacked along a leading ``n_layers`` axis, so the executor
@@ -23,15 +28,17 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp
-from repro_torch.models.common import dtype_of, dense_init, rmsnorm, tree_map
+from repro_torch.models.common import (dtype_of, dense_init, rmsnorm,
+                                       sinusoidal_positions, stacked,
+                                       tree_map)
+
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"family={cfg.family!r} is not ported yet: the port runs dense "
-            "and MoE decoders and the VLM backbone (audio, SSM and hybrid "
-            "models are later slices)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family={cfg.family!r} is not a decoder of this "
+                         "module (hybrid: models.hybrid, ssm: models.xlstm)")
 
 
 # ---------------------------------------------------------------- params
@@ -52,28 +59,17 @@ def init_params(cfg, gen: torch.Generator):
     """Seeded random weights, every leaf made on ``gen``'s device."""
     _check_family(cfg)
     dtype = dtype_of(cfg)
-    layers = None
-    for i in range(cfg.n_layers):
-        lp = init_layer_params(gen, cfg, dtype)
-        if layers is None:
-            layers = tree_map(
-                lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), lp)
-        _assign_layer(layers, lp, i)
-    p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), 1, dtype),
-         "layers": layers,
-         "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
-                                 device=gen.device)}
+    layers = stacked(lambda: init_layer_params(gen, cfg, dtype),
+                     cfg.n_layers)
+    nq, d, V = cfg.n_codebooks, cfg.d_model, cfg.vocab
+    embed = dense_init(gen, (nq, V, d), 2, dtype) if nq else \
+        dense_init(gen, (V, d), 1, dtype)
+    p = {"embed": embed, "layers": layers,
+         "final_norm": torch.ones((d,), dtype=dtype, device=gen.device)}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), 0, dtype)
+        p["unembed"] = dense_init(gen, (nq, d, V), 1, dtype) if nq else \
+            dense_init(gen, (d, V), 0, dtype)
     return p
-
-
-def _assign_layer(stack, lp, i):
-    for k, v in lp.items():
-        if isinstance(v, dict):
-            _assign_layer(stack[k], v, i)
-        else:
-            stack[k][i] = v
 
 
 def layer_slice(layers, i):
@@ -131,14 +127,30 @@ def layer_body(lp, cfg, x, positions, cache_kv, cache_pos):
     return x + mlp.ffn(lp["ffn"], cfg, hin)
 
 
+def embed_tokens(params, cfg, tokens):
+    """(B, T) token ids, or (B, T, nq) for the audio family, whose nq
+    codebook embeddings are summed in q order, one rounding per add, as
+    the reference's loop sums them."""
+    tokens = tokens.to(torch.int64)
+    if cfg.n_codebooks:
+        out = 0
+        for q in range(cfg.n_codebooks):
+            out = out + params["embed"][q][tokens[..., q]]
+        return out
+    return params["embed"][tokens]
+
+
 def logits_head(params, cfg, x):
+    if cfg.n_codebooks:
+        return torch.einsum("btd,qdv->btqv", x, params["unembed"])
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["unembed"]
 
 
 def forward(params, cfg, batch, cache=None, cache_pos=None):
-    """Returns (logits, cache). batch: {"tokens": (B, T) int tensor}, and
+    """Returns (logits, cache). batch: {"tokens": (B, T) int tensor, or
+    (B, T, nq) for the audio family, whose logits are (B, T, nq, V)}, and
     for the vlm family optionally "vision_embeds" (B, nv, d), placed in
     front of the tokens, and "positions" (3, B, T) for M-RoPE (required);
     cache: stacked KV dict, written in place. ``params["layers"]`` is the
@@ -147,7 +159,7 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
     _check_family(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x = params["embed"][tokens.to(torch.int64)]
+    x = embed_tokens(params, cfg, tokens)
     if cfg.family == "vlm" and "vision_embeds" in batch:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     T = x.shape[1]
@@ -155,8 +167,10 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
         positions = batch["positions"]
     else:
         base = cache_pos if cache_pos is not None else 0
-        positions = (base + torch.arange(T, device=x.device))[None, :] \
-            .expand(B, T)
+        pos_ids = (base + torch.arange(T, device=x.device))[None, :]
+        if cfg.pos == "sin":
+            x = x + sinusoidal_positions(pos_ids, cfg.d_model).to(x.dtype)
+        positions = pos_ids.expand(B, T)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = layers[i] if isinstance(layers, list) else layer_slice(layers, i)
@@ -185,15 +199,16 @@ class _Tree(nn.Module):
                     else getattr(self, k).data) for k in self._keys}
 
 
-class Transformer(nn.Module):
-    """The monolithic decoder as an ``nn.Module``. Its state is the
-    param tree (``tree()``) that the executor splits per sub-layer."""
+class Monolithic(nn.Module):
+    """A monolithic model as an ``nn.Module``: the param tree held as
+    frozen parameters (``tree()``, the tree the executor splits per
+    sub-layer) and ``forward`` the family's function of that tree."""
 
-    def __init__(self, cfg, params):
+    def __init__(self, cfg, params, fn):
         super().__init__()
-        _check_family(cfg)
         self.cfg = cfg
         self.params = _Tree(params)
+        self._fn = fn
 
     def tree(self):
         return self.params.tree()
@@ -202,5 +217,17 @@ class Transformer(nn.Module):
     def forward(self, tokens, cache=None, cache_pos=None, **inputs):
         """``inputs``: the vlm family's ``vision_embeds`` and
         ``positions``."""
-        return forward(self.tree(), self.cfg, {"tokens": tokens, **inputs},
-                       cache=cache, cache_pos=cache_pos)
+        return self._fn(self.tree(), self.cfg, {"tokens": tokens, **inputs},
+                        cache=cache, cache_pos=cache_pos)
+
+
+class Transformer(Monolithic):
+    """The monolithic decoder (dense, MoE, vlm, audio)."""
+
+    def __init__(self, cfg, params):
+        _check_family(cfg)
+        super().__init__(cfg, params, forward)
+
+
+def module(cfg, params) -> Transformer:
+    return Transformer(cfg, params)

@@ -23,11 +23,12 @@ budget by the planner), on the CUDA card unless the caller passes
 expert-granular placement: the planner pins hot experts one by one
 (routing stats seeded from the profile DB, refined online by the
 executor's EMA) and the executor streams only the cold experts the
-routers select. A vlm session
-(qwen2-vl-7b's language stack) is planning-only, as in the reference: it
-builds the graph, the schedule and the estimates, and its executor,
-batcher, ``generate`` and ``serve`` raise. Audio, SSM and hybrid families
-raise ``NotImplementedError`` naming the slice of the port they belong to.
+routers select. Sessions of the other families — vlm (qwen2-vl-7b's
+language stack), audio (musicgen), hybrid (zamba2) and ssm (xLSTM) — are
+planning-only, as in the reference: they build the graph, the schedule
+and the estimates, and their executor, batcher, ``generate`` and
+``serve`` raise, naming the executor. Those models run through the
+monolithic ``Model.prefill`` / ``Model.decode_step``.
 
 ``faults=`` (a ``FaultPlan``) injects faults at the named points of the
 prefetcher, the executor, the paged cache, the batcher and the gateway;
@@ -64,11 +65,6 @@ from repro_torch.models import build_model
 from repro_torch.models.common import greedy_token
 
 
-def _not_ported(option: str, slice_name: str):
-    raise NotImplementedError(f"{option} is not ported yet: it lands with "
-                              f"the {slice_name} slice of the port")
-
-
 class Session:
     """Owns profile DB + schedule + executor + batcher for one model on one
     system, and re-plans live when the conditions change."""
@@ -86,9 +82,6 @@ class Session:
                  sampling: str = "greedy",
                  faults: Optional[FaultPlan] = None,
                  recovery: Optional[RecoveryPolicy] = None):
-        if cfg.family not in ("dense", "moe", "vlm"):
-            _not_ported(f"family={cfg.family!r}",
-                        "audio / SSM / hybrid model")
         if faults is not None and not isinstance(faults, FaultPlan):
             raise TypeError(f"faults must be a FaultPlan, got "
                             f"{type(faults).__name__}")

@@ -829,3 +829,85 @@ def test_own_init_makes_the_reference_layout():
         assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jm.items()} \
             == {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
                 for k, v in tm.items()}
+
+
+# ------------------------------------------------------------ prefill tier
+TIER_SEQ = 96
+
+
+def _tier_reqs(cls, vocab):
+    """Prompts of 40, 49 and 58 tokens: two chunks at tier 32, one at 64."""
+    rng = np.random.RandomState(0)
+    return [cls(rid=i, prompt=rng.randint(0, vocab, size=40 + 9 * i)
+                .astype(np.int32), max_new_tokens=6) for i in range(3)]
+
+
+@pytest.fixture(scope="module")
+def tier_runs(dbs):
+    """bf16 qwen30b-a3b smoke with int8 experts served at 0.6x, granular
+    and monolithic, with every layer-major prefill forced onto tier 32
+    and onto tier 64, in both packages: (package, tier, granular) ->
+    (tokens, tiers the executor used)."""
+    from repro.core import planner as jplanner
+    from repro_torch.core import planner as tplanner
+    kw = dict(dtype="bfloat16", expert_quant="int8")
+    jcfg, tcfg = jax_smoke(ARCH).replace(**kw), torch_smoke(ARCH).replace(**kw)
+    jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    budget = int(sum(s.weight_bytes for s in jax_graph(
+        jcfg, wdtype=2, expert_granular=True)) * 0.6) + 1
+    out = {}
+    for tier in (32, 64):
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (jplanner, tplanner):
+                mp.setattr(mod.Schedule, "pick_prefill_tier",
+                           lambda self, *a, _t=tier, **k: _t)
+            for granular in (True, False):
+                s = Session.open(tcfg, CLI2, budget,
+                                 InferenceSetting(batch=MAX_BATCH,
+                                                  context=TIER_SEQ),
+                                 db=dbs[1], params=tp, max_seq=TIER_SEQ,
+                                 device="cpu", expert_granular=granular)
+                reqs = _tier_reqs(Request, tcfg.vocab)
+                s.serve(reqs, max_batch=MAX_BATCH)
+                out["port", tier, granular] = (
+                    [r.generated for r in reqs],
+                    set(s.executor.stats.tiers_used))
+                js = repro.Session.open(
+                    jcfg, JCLI2, budget,
+                    JSetting(batch=MAX_BATCH, context=TIER_SEQ), db=dbs[0],
+                    params=jp, max_seq=TIER_SEQ, expert_granular=granular)
+                jreqs = _tier_reqs(JRequest, jcfg.vocab)
+                js.serve(jreqs, max_batch=MAX_BATCH)
+                out["reference", tier, granular] = (
+                    [r.generated for r in jreqs],
+                    set(js.executor.stats.tiers_used))
+    return out
+
+
+@pytest.mark.parametrize("granular", [True, False])
+@pytest.mark.parametrize("tier", [32, 64])
+def test_forced_prefill_tier_tokens_match_reference(tier_runs, tier,
+                                                    granular):
+    """The served tokens at a forced prefill tier equal the reference's
+    at the same tier (int8 experts, bf16), and the prefills ran there."""
+    tokens, used = tier_runs["port", tier, granular]
+    jtokens, jused = tier_runs["reference", tier, granular]
+    assert tier in used and tier in jused
+    assert tokens == jtokens
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_granular_equals_monolithic_across_unequal_tiers(tier_runs,
+                                                         package):
+    """In each package the tokens do not follow the prefill tier here:
+    granular at 32 == monolithic at 64 and the other way round. Capacity
+    is dropless at these chunks (under ``DROPLESS_MAX_ASSIGN``
+    assignments), so a tier change drops no token; what moved the
+    card's tokens with the tier is the rounding of the chunk's other
+    products, not the MoE semantics."""
+    run = {(t, g): tier_runs[package, t, g][0] for t in (32, 64)
+           for g in (True, False)}
+    assert run[32, True] == run[64, False]
+    assert run[64, True] == run[32, False]
+    assert run[32, True] == run[64, True]

@@ -28,8 +28,12 @@ from repro_torch.core.costmodel import TimingEstimator as TEstimator
 from repro_torch.core.system import InferenceSetting as TSetting
 
 BUDGETS = (2.0, 0.5, 0.1)
+# the audio, hybrid and ssm families plan as the reference plans them
+FAMILY_ARCHS = ("musicgen-medium", "zamba2-7b", "xlstm-125m")
 CASES = [("cli2", "qwen2-0.5b", True), ("cli2", "qwen3-14b", True),
-         ("h100", "qwen2-0.5b", True), ("h100", "qwen2-0.5b", False)]
+         ("h100", "qwen2-0.5b", True), ("h100", "qwen2-0.5b", False)] + \
+    [("h100", arch, smoke) for arch in FAMILY_ARCHS for smoke in (True,
+                                                                  False)]
 
 
 def _plain(obj):
@@ -96,15 +100,17 @@ def test_h100_system_is_the_data_sheet_card():
     assert h.with_(link_gbps=42.0).link_gbps == 42.0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-14b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-14b", "yi-9b",
+                                  *FAMILY_ARCHS])
 def test_build_graph_equal(arch):
     jcfg, tcfg = _cfgs(arch, smoke=True)
     for wdtype in (2, 1):
         assert _plain(jgraph.build_graph(jcfg, wdtype=wdtype)) == \
             _plain(tgraph.build_graph(tcfg, wdtype=wdtype))
-    jfull, tfull = _cfgs("qwen2-0.5b", smoke=False)
-    assert _plain(jgraph.build_graph(jfull)) == \
-        _plain(tgraph.build_graph(tfull))
+    for name in {"qwen2-0.5b", arch}:
+        jfull, tfull = _cfgs(name, smoke=False)
+        assert _plain(jgraph.build_graph(jfull)) == \
+            _plain(tgraph.build_graph(tfull))
 
 
 @pytest.mark.parametrize("system,arch,smoke", CASES)

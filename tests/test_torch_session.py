@@ -355,12 +355,24 @@ def test_unported_options_name_their_slice(model, dbs, option, kw, error,
     assert gw.session is sess and gw.batcher is sess.batcher()
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "zamba2-7b"])
-def test_unported_families_name_their_slice(dbs, arch):
-    """Audio and hybrid models are later slices of the port."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        Session.open(torch_smoke(arch), CLI2, 1 << 30, db=dbs[1],
-                     device="cpu")
+@pytest.mark.parametrize("arch", ["musicgen-medium", "zamba2-7b",
+                                  "xlstm-125m"])
+def test_family_session_is_planning_only(dbs, arch):
+    """Audio, hybrid and ssm sessions plan (graph, schedule, estimates)
+    and raise on execution, naming the executor, as the reference
+    asserts; they allocate no weights."""
+    sess = Session.open(torch_smoke(arch), CLI2, 1 << 20,
+                        InferenceSetting(batch=1, context=MAX_SEQ),
+                        db=dbs[1], max_seq=MAX_SEQ, device="cpu")
+    assert sess.estimates()["pinned_bytes"] > 0
+    assert any(s.kind == ("attn" if arch == "musicgen-medium" else "mamba")
+               for s in sess.subs)
+    for use in (lambda: sess.executor, lambda: sess.batcher(),
+                lambda: sess.serve([]),
+                lambda: sess.generate(np.zeros((1, 4), np.int32))):
+        with pytest.raises(NotImplementedError, match="executor"):
+            use()
+    assert sess._params is None
 
 
 def test_vlm_session_is_planning_only(dbs):

@@ -207,13 +207,20 @@ def test_prefill_and_decode_step_match(models, dtype):
 
 
 def test_unported_positions_raise():
-    """Sinusoidal positions (the audio family) are a later slice."""
+    """Sinusoidal positions (the audio family) are added at the embedding:
+    ``qkv_project`` leaves q and k as projected, as with ``pos="none"``.
+    A position scheme the reference does not know raises."""
     cfg = torch_smoke("qwen2-0.5b").replace(pos="sin")
     p = tattn.init_attn_params(torch.Generator().manual_seed(0), cfg,
                                torch.float32)
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        tattn.qkv_project(p, cfg, torch.zeros(1, 3, cfg.d_model),
-                          torch.arange(3)[None])
+    x = torch.randn(1, 3, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(3)[None]
+    sin = tattn.qkv_project(p, cfg, x, pos)
+    none = tattn.qkv_project(p, cfg.replace(pos="none"), x, pos)
+    assert all(torch.equal(a, b) for a, b in zip(sin, none))
+    with pytest.raises(ValueError, match="unknown pos"):
+        tattn.qkv_project(p, cfg.replace(pos="alibi"), x, pos)
 
 
 # ------------------------------------------------------------ VLMOpt
