@@ -53,7 +53,16 @@ Phases (each raises on failure; the last line is printed only if all pass):
    ``block_q`` (64, 128 and the reference's 663) at the vision shape in
    f32 and in bf16; its
    times (events and device time), the plain version's and
-   ``scaled_dot_product_attention``'s (the yardstick only);
+   ``scaled_dot_product_attention``'s (the yardstick only). Then K4's
+   backward (``flash_attention_bwd.cu``) against its plain version at
+   qwen2-0.5b's (1, 14/2, 4096, 64) causal, the language and vision
+   shapes, zamba2's and musicgen's head dims and a ragged 2081, bf16 and
+   f32, each within a limit set by its rounding (the output's rounding
+   and its f32 sums) that the kernel fed inputs without its last key tile
+   (dq) or its last query block (dk, dv) must exceed; the forward asked
+   for its lse ``torch.equal`` to the forward without it; its times at
+   phase 17's (4, 14/2, 4096, 64) and the language shape beside its bound,
+   the plain version's and SDPA's backward (the yardstick only);
 3. main path: full-width, full-depth qwen2-0.5b with seeded random bf16
    weights, served through ``Session.open`` -> ``serve`` at VRAM budgets of
    2.0x, 0.5x and 0.1x of the model's weight bytes on the measured link:
@@ -187,7 +196,24 @@ Phases (each raises on failure; the last line is printed only if all pass):
    bf16-p limit); zamba2 (``TF_DRIFT_ARCHS``) also in f32, where its
    tokens and its K4 forward against the plain attention's are gated;
    each model's planning-only session (its executor raises); a probe of
-   which prefill ops give rows whose bits follow the chunk's row count.
+   which prefill ops give rows whose bits follow the chunk's row count;
+17. training: (a) ``repro_torch.launch.train.main`` on qwen2-0.5b at its
+   published widths and depth, B = 4, T = 4096 (every layer's attention
+   through K4 forward and backward), remat full, 8 steps with a
+   checkpoint every 3 and a fault injected at step 5: finite and falling
+   losses, one restart from the step-3 checkpoint whose replayed losses
+   equal the first run's, K4's forward and backward launches counted
+   (remat recomputes each forward), the peak against a bound worked out
+   from the shapes, step s and train tokens/s; (b) at B = 1, remat none,
+   the grads through K4 against the same step with the plain attention:
+   bf16 as close to the f32 gradient as the plain one's, K4's peak at
+   least 20 GB under the plain one's, and f32 over 6 layers within 1e-4;
+   (c) microbatches 2 against 1 on a 4 x 4096 batch; (d) one remat-none
+   step of xlstm-125m, musicgen-medium (4096 frames), zamba2-7b (12 of 81
+   layers), qwen2-vl-7b (4 of 28 layers, 1024 vision embeddings, 3072
+   text tokens, ``loss_mask``) and qwen30b-a3b (2 of 48 layers, T = 512,
+   K1's launches counted), grads finite, zamba2 and qwen2-vl-7b against
+   the plain attention as in (b).
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -198,6 +224,7 @@ import asyncio
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -249,7 +276,8 @@ def build_kernels():
     from repro_torch.kernels import streamed_matmul as sm
     libs = {"K1, K2, K3 f32": sm.LIBRARY,
             "K1, K2, K3 bf16 (mma)": sm.LIBRARY_MMA,
-            "K4 (fma)": fa.LIBRARY, "K4 bf16 (mma)": fa.LIBRARY_MMA}
+            "K4 (fma)": fa.LIBRARY, "K4 bf16 (mma)": fa.LIBRARY_MMA,
+            "K4 backward (fma)": fa.LIBRARY_BWD}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.lib(), libs.values()))
@@ -804,18 +832,21 @@ VISION_Q_CHUNK = 663        # the reference's Q-chunk at N = 4641
 KNOB_TOL = 2e-5             # tests/test_kernels.py::test_flash_q_chunk_knob
 
 
+def _pairs(Tq, Tk, causal):
+    """Visible (query, key) pairs: min(i + 1, Tk) for row i when causal."""
+    if causal:
+        n = min(Tq, Tk)
+        return n * (n + 1) // 2 + max(Tq - Tk, 0) * Tk
+    return Tq * Tk
+
+
 def flash_bound(shape, causal, dtype_bytes, flops_peak):
     """Least ms for one attention call: q, k, v read once and o written
     once over the HBM rate, or 4 * hd operations per visible (query, key)
     pair (two products) over ``flops_peak``; causal counts the pairs this
     shape's mask leaves, min(i + 1, Tk) for row i."""
     B, H, KV, Tq, Tk, hd = shape
-    if causal:
-        n = min(Tq, Tk)
-        pairs = n * (n + 1) // 2 + max(Tq - Tk, 0) * Tk
-    else:
-        pairs = Tq * Tk
-    t_ops = 4.0 * B * H * hd * pairs / flops_peak * 1e3
+    t_ops = 4.0 * B * H * hd * _pairs(Tq, Tk, causal) / flops_peak * 1e3
     byts = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * dtype_bytes
     t_bytes = byts / PEAK_HBM_BPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1068,6 +1099,241 @@ def flash_kernel_phase():
             "block_q_bit_equal_bf16": bf16_equal,
             "variant_launches": dict(fa.flash_attention.variant_launches),
             "check_launches": fa.flash_attention.launches - before}
+
+
+# ------------------------------------------------------- phase 2: K4 backward
+# (tag, (B, H, KV, Tq, Tk, hd), causal): qwen2-0.5b's training shape at one
+# sequence, the VLM's language and vision shapes, zamba2's and musicgen's
+# head dims, a ragged length no tile divides
+BWD_SHAPES = (("qwen2-0.5b", (1, 14, 2, 4096, 4096, 64), True),
+              ("language", LANGUAGE_SHAPE, True),
+              ("vision", VISION_SHAPE, False),
+              ("zamba2", ZAMBA2_SHAPE, True),
+              ("musicgen", MUSICGEN_SHAPE, True),
+              ("ragged", (1, 28, 4, 2081, 2081, 128), True))
+# timed: phase 17's headline attention (qwen2-0.5b, B = 4) and the language
+# shape, bf16
+BWD_TIMED = (("qwen2-0.5b train", (4, 14, 2, 4096, 4096, 64), True),
+             ("language", LANGUAGE_SHAPE, True))
+# The backward kernel is held, in bf16 and f32, to a limit set by its own
+# rounding against the plain version's f32 result on the same inputs (q,
+# k, v, the forward's lse, dO) before its cast: the output's
+# rounding, 2^-8 |ref| in bf16 (2^-23 in f32: round to nearest is half of
+# that), plus BWD_F32 times the element's absolute sum A (the same sums
+# over |terms|: A_dv = |p|^T |dO|, A_dq = scale |ds'| |k|, A_dk = scale
+# |ds'|^T |q| with |ds'| = p (|dO| |v|^T + |D|), D = rowsum(p dP)), for
+# the f32 sums of up to
+# a few thousand terms in another order (their error grows as sqrt(n)
+# 2^-24 A, about 4e-6 A at n = 4096) and the forward's lse (ex2.approx on
+# the tensor cores: p to about 1e-6). A sound kernel's excess (max error
+# / limit) stays at most 1; the kernel fed inputs that drop its last key
+# tile from dq, or its last query block from dk and dv (planted faults),
+# must go above it.
+BWD_F32 = 2.0 ** -16
+BWD_ROUND = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -23}
+# the planted faults: (tag, shape, causal)
+BWD_FAULTS = (BWD_SHAPES[0], BWD_SHAPES[2], BWD_SHAPES[5])
+BWD_NAMES = ("::dkdv_kernel<", "::rows_kernel<")
+
+
+def flash_bwd_bound(shape, causal, dtype_bytes, flops_peak):
+    """Least ms for K4's backward: 2.5x the forward's operations (five
+    products of 2 hd per visible pair: S and dP, dv, dk, dq) over
+    ``flops_peak``, or q, k, v, dO, lse read once and dq, dk, dv written
+    once over the HBM rate."""
+    B, H, KV, Tq, Tk, hd = shape
+    t_ops = 2.5 * 4.0 * B * H * hd * _pairs(Tq, Tk, causal) \
+        / flops_peak * 1e3
+    byts = ((3 * B * H * Tq + 4 * B * KV * Tk) * hd * dtype_bytes
+            + B * H * Tq * 4)
+    t_bytes = byts / PEAK_HBM_BPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bwd_f32(q, k, v, dout, lse, causal):
+    """The plain backward (``kernels/ref.py::flash_attention_bwd_ref``) in
+    f32 without its final cast, and each gradient's absolute sum A (see
+    ``BWD_F32``): ((dq, dk, dv), (A_dq, A_dk, A_dv))."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    G = H // KV
+    f = torch.float32
+    qg = q.reshape(B, KV, G, Tq, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, kf) * hd ** -0.5
+    if causal:
+        mask = torch.arange(Tk, device=q.device)[None, :] \
+            <= torch.arange(Tq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse.reshape(B, KV, G, Tq, 1).to(f))
+    del s
+    dog = dout.reshape(B, KV, G, Tq, hd).float()
+    dv = torch.einsum("bkgts,bkgtd->bksd", p, dog)
+    a_dv = torch.einsum("bkgts,bkgtd->bksd", p, dog.abs())
+    ds = torch.einsum("bkgtd,bksd->bkgts", dog, vf)
+    delta = (p * ds).sum(-1, keepdim=True)
+    ds = p * (ds - delta)
+    dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf) * hd ** -0.5
+    dk = torch.einsum("bkgts,bkgtd->bksd", ds, qg) * hd ** -0.5
+    del ds
+    ds_abs = p * (torch.einsum("bkgtd,bksd->bkgts", dog.abs(), vf.abs())
+                  + delta.abs())
+    del p
+    a_dq = torch.einsum("bkgts,bksd->bkgtd", ds_abs, kf.abs()) * hd ** -0.5
+    a_dk = torch.einsum("bkgts,bkgtd->bksd", ds_abs, qg.abs()) * hd ** -0.5
+    del ds_abs
+    return ((dq.reshape(B, H, Tq, hd), dk, dv),
+            (a_dq.reshape(B, H, Tq, hd), a_dk, a_dv))
+
+
+def bwd_excess(out, ref, absum, dtype):
+    """Max over elements of |out - ref| / the backward's rounding limit."""
+    lim = BWD_ROUND[dtype] * ref.abs() + BWD_F32 * absum + 1e-30
+    return ((out.float() - ref).abs() / lim).max().item()
+
+
+def _bwd_inputs(gen, shape, causal, dtype):
+    """q, k, v, dO on the card and the lse of K4's forward (asked for),
+    whose output is checked ``torch.equal`` to the forward without it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KV, Tq, Tk, hd = shape
+    (q, k, v), = _qkv(gen, shape, dtype)
+    dout = torch.randn((B, H, Tq, hd), generator=gen, device="cuda") \
+        .to(dtype)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device="cuda")
+    fa.launch(q, k, v, o, causal=causal, block_q=1024, block_k=1024,
+              lse=lse)
+    plain = fa.flash_attention(q, k, v, causal=causal, block_q=1024,
+                               block_k=1024)
+    if not torch.equal(o, plain):
+        raise AssertionError(f"K4 forward with lse at {shape} {dtype} is "
+                             "not torch.equal to the forward without it")
+    del o, plain
+    return q, k, v, dout, lse
+
+
+def flash_bwd_phase():
+    """K4's backward against its plain version on the card: every shape
+    of ``BWD_SHAPES`` in bf16 and f32 within the rounding limit, the
+    planted faults above it, the forward with lse bit-equal to the
+    serving forward, and the times at ``BWD_TIMED``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    before = fa.flash_attention_backward.launches
+    checked, faults, timed = [], [], []
+    max_err = 0.0
+    for tag, shape, causal in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, dout, lse = _bwd_inputs(gen, shape, causal, dtype)
+            grads = fa.flash_attention_backward(q, k, v, dout, lse,
+                                                causal=causal)
+            refs, abss = attention_bwd_f32(q, k, v, dout, lse, causal)
+            x = max(bwd_excess(g, r, a, dname)
+                    for g, r, a in zip(grads, refs, abss))
+            err = max((g.float() - r).abs().max().item()
+                      for g, r in zip(grads, refs))
+            if not all(bool(torch.isfinite(g).all()) for g in grads):
+                raise AssertionError(f"K4 backward {tag} {shape} {dname}: "
+                                     "non-finite gradient")
+            if not x <= 1.0:
+                raise AssertionError(f"K4 backward {tag} {shape} {dname}: "
+                                     f"{x:.3f}x the rounding limit")
+            max_err = max(max_err, err)
+            checked.append({"tag": tag, "shape": list(shape),
+                            "causal": causal, "dtype": dname,
+                            "max_abs_err": err, "round_excess": x})
+            log(f"K4 backward {tag} {shape} causal={causal} {dname}: "
+                f"{x:.3f}x the rounding limit, max |err| {err:.3e}; "
+                "forward with lse torch.equal to the forward without it")
+            if dtype == torch.bfloat16 and (tag, shape, causal) in \
+                    BWD_FAULTS:
+                faults += bwd_planted_faults(tag, shape, causal, q, k, v,
+                                             dout, lse, refs, abss)
+            del q, k, v, dout, lse, grads, refs, abss
+            free_cuda()
+    n_calls = fa.flash_attention_backward.launches - before
+    want = len(BWD_SHAPES) * 2 + 2 * len(BWD_FAULTS)
+    if n_calls != want:
+        raise AssertionError(f"K4 backward counted {n_calls} launches, "
+                             f"want {want}")
+    for tag, shape, causal in BWD_TIMED:
+        B, H, KV, Tq, Tk, hd = shape
+        set_bytes = (3 * B * H * Tq + 2 * B * KV * Tk) * hd * 2
+        sets = [_bwd_inputs(gen, shape, causal, torch.bfloat16)
+                for _ in range(max(2, -(-2 * L2_BYTES // set_bytes)))]
+
+        def kern(q, k, v, dout, lse):
+            return fa.flash_attention_backward(q, k, v, dout, lse,
+                                               causal=causal)
+        ms = time_ms(kern, sets, iters=6)
+        dev_ms = device_ms(kern, sets, BWD_NAMES, iters=6)
+        plain_ms = time_ms(lambda q, k, v, dout, lse:
+                           flash_attention_bwd_ref(q, k, v, dout, lse,
+                                                   causal=causal),
+                           sets[:1], iters=3)
+        # the yardstick: SDPA's backward alone, on a graph kept for reuse
+        lib = []
+        for q, k, v, dout, lse in sets:
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+            lib.append((out, leaves, dout))
+        lib_ms = time_ms(lambda out, leaves, dout: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), lib, iters=6)
+        b_ms, b_by = flash_bwd_bound(shape, causal, 2, PEAK_BF16_FLOPS)
+        timed.append({"tag": tag, "shape": list(shape), "causal": causal,
+                      "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": max_err})
+        log(f"K4 backward {tag} {shape} causal={causal} bf16: kernel "
+            f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention's backward {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del sets, lib
+        free_cuda()
+    return {"max_abs_err": max_err, "checked": checked,
+            "planted_faults": faults, "shapes": timed,
+            "check_launches": fa.flash_attention_backward.launches - before}
+
+
+def bwd_planted_faults(tag, shape, causal, q, k, v, dout, lse, refs, abss):
+    """The kernel without its last key tile (dq) and without its last
+    query block (dk, dv), against the unfaulted plain gradients: each must
+    exceed the rounding limit."""
+    from repro_torch.kernels import flash_attention as fa
+    Tq, Tk = shape[3], shape[4]
+    drop_k = Tk - (Tk - 1) // 64 * 64
+    drop_q = Tq - (Tq - 1) // 64 * 64
+    out = []
+    dq, _, _ = fa.flash_attention_backward(
+        q, k[:, :, :-drop_k], v[:, :, :-drop_k], dout, lse, causal=causal)
+    x = bwd_excess(dq, refs[0], abss[0], "bfloat16")
+    out.append({"tag": tag, "fault": f"dq without its last {drop_k} keys",
+                "round_excess": x})
+    _, dk, dv = fa.flash_attention_backward(
+        q[:, :, :-drop_q], k, v, dout[:, :, :-drop_q],
+        lse[:, :, :-drop_q].contiguous(), causal=causal)
+    x2 = max(bwd_excess(dk, refs[1], abss[1], "bfloat16"),
+             bwd_excess(dv, refs[2], abss[2], "bfloat16"))
+    out.append({"tag": tag, "fault": f"dk, dv without the last {drop_q} "
+                "query rows", "round_excess": x2})
+    for f in out:
+        log(f"K4 backward planted fault, {tag} {shape}, {f['fault']}: "
+            f"{f['round_excess']:.3f}x the rounding limit (must be > 1)")
+        if not f["round_excess"] > 1.0:
+            raise AssertionError(f"K4 backward rounding limit has no teeth: "
+                                 f"{tag} {f['fault']} passes")
+    return out
 
 
 # ------------------------------------------------------------ phase 3-5
@@ -1472,7 +1738,8 @@ def _counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import streamed_matmul as sm
     return {"K1": sm.streamed_matmul, "K2": sm.streamed_matmul_int8,
-            "K3": sm.streamed_matmul_int4, "K4": fa.flash_attention}
+            "K3": sm.streamed_matmul_int4, "K4": fa.flash_attention,
+            "K4bwd": fa.flash_attention_backward}
 
 
 def reset_launches():
@@ -2585,7 +2852,7 @@ def moe_path(link):
                 qrows[(tag, frac)] = serve(qcfg, qparams, qtot,
                                            f"{qtag} {tag}", frac, **gkw)
         counts, variants = read_launches(), read_variants()
-        want = {"K1": route.calls, "K2": 0, "K3": 0, "K4": 0}
+        want = {"K1": route.calls, "K2": 0, "K3": 0, "K4": 0, "K4bwd": 0}
         want[kname] = 3 * experts.calls
         if counts != want or experts.calls <= 0 or deq.calls \
                 or variants[kname] != {"mma": want[kname], "fma": 0} \
@@ -4059,6 +4326,537 @@ def families_path(link):
 
 
 
+# ------------------------------------------------------------ phase 17
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 4096, 8
+TRAIN_CKPT_EVERY, TRAIN_FAULT = 3, 5
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--full", "--seq", str(TRAIN_T),
+              "--batch", str(TRAIN_B), "--steps", str(TRAIN_STEPS),
+              "--remat", "full", "--ckpt-every", str(TRAIN_CKPT_EVERY),
+              "--inject-fault", str(TRAIN_FAULT), "--lr", "3e-3",
+              "--warmup", "2"]
+# the gradient checks against the same step with the plain attention: each
+# leaf's relative L2 distance. bf16: both paths round p and every product
+# to bf16 at other places, through 24 layers, so K4's bf16 grads are held
+# as close to the f32 gradient as the plain attention's bf16 grads are (2x
+# their distance plus 2e-2, as tests/test_torch_grads.py holds the port to
+# the reference); f32 (the weights cast): the sums' order
+GRAD_BF16_MAX = 2e-2
+GRAD_F32_MAX = 1e-4
+F32_GRAD_LAYERS = 6      # of 24: the plain f32 attention's saved scores
+PEAK_GAP_MIN = 20e9      # K4's peak under the plain attention's, B = 1
+# bytes a step holds per logit at the loss's peak: the bf16 logits, their
+# f32 copy, exp (saved for the backward), the iota mask's f32 select and
+# its bool mask (saved), and the backward's f32 and bf16 gradients
+LOSS_BYTES_PER_LOGIT = 20
+# (arch, layers kept or None, B, T): one remat-none step each at the
+# published widths; the plain twin where its saved scores fit
+TRAIN_FAMILIES = (("xlstm-125m", None, 4, 512),
+                  ("musicgen-medium", None, 1, 4096),
+                  ("zamba2-7b", 12, 1, 4096),
+                  ("qwen2-vl-7b", 4, 1, 4096),
+                  ("qwen30b-a3b", 2, 2, 512))
+PLAIN_TWIN = ("zamba2-7b", "qwen2-vl-7b")
+
+
+def layer_act_bytes(cfg):
+    """A layer's saved activations per token at remat none, generously:
+    its norms' f32 inputs and outputs and its projections' inputs (48 d),
+    the FFN's hidden and the silu's pieces (20 f), and the attention's q,
+    k, v, o and their f32 rope copies (24 (H + 2 KV) hd); a mamba layer
+    adds its SSD's per-chunk f32 buffers (three of H x chunk floats)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    f = cfg.moe.d_expert * cfg.moe.top_k if cfg.moe else max(cfg.d_ff, 1)
+    out = 48 * d + 20 * f + 24 * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    if cfg.family == "hybrid":
+        out += 48 * (cfg.d_inner + 2 * cfg.ssm_state) \
+            + 3 * 4 * cfg.n_ssm_heads * 256
+    return out
+
+
+def train_peak_bound(cfg, n_params, B, T, remat):
+    """The most a train step of (B, T) tokens holds: 14 B a param (bf16
+    params and grads, f32 AdamW m and v, and the new bf16 params written
+    before the old are freed), the saved activations (remat full: each
+    layer's bf16 input; none: ``layer_act_bytes`` a layer), twice one
+    layer's activations (its recompute and the backward through it), the
+    loss's ``LOSS_BYTES_PER_LOGIT`` a logit, and ``ACT_ALLOWANCE``."""
+    rows = B * T
+    layer = rows * layer_act_bytes(cfg)
+    saved = cfg.n_layers * (rows * cfg.d_model * 2 if remat == "full"
+                            else layer)
+    logits = rows * max(cfg.n_codebooks, 1) * cfg.vocab
+    return (14 * n_params + saved + 2 * layer
+            + LOSS_BYTES_PER_LOGIT * logits + ACT_ALLOWANCE)
+
+
+def _device_batch(batch):
+    import torch
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _grads_on_card(cfg, params, batch, plain=False):
+    """``launch.steps.value_and_grad`` of the remat-none loss, with the
+    plain attention when ``plain``; returns (loss, grads, seconds, peak,
+    launches, variants), the counts set to 0 just before."""
+    import torch
+    from repro_torch.launch.steps import make_loss_step, value_and_grad
+    from repro_torch.models import attention
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    threshold = attention.FLASH_THRESHOLD
+    if plain:
+        attention.FLASH_THRESHOLD = 1 << 40
+    try:
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(make_loss_step(cfg), params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        attention.FLASH_THRESHOLD = threshold
+    return (loss, grads, secs, torch.cuda.max_memory_allocated(),
+            read_launches(), read_variants())
+
+
+def _leaf_gaps(grads, ref):
+    """Each leaf's relative L2 distance of ``grads`` from ``ref``."""
+    import torch
+    from repro_torch.models.common import tree_flatten
+    out = []
+    for g, r in zip(tree_flatten(grads)[0], tree_flatten(ref)[0]):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("non-finite gradient")
+        rn = r.float().norm().item()
+        out.append((g.float() - r.float()).norm().item() / max(rn, 1e-30))
+    return out
+
+
+def _finite(tree, tag):
+    import torch
+    from repro_torch.models.common import tree_flatten
+    if not all(bool(torch.isfinite(t).all()) for t in tree_flatten(tree)[0]):
+        raise AssertionError(f"{tag}: non-finite gradient")
+
+
+def _want_attention(counts, variants, n_fwd, n_bwd, variant, tag):
+    want = {name: 0 for name in counts}
+    want.update({"K4": n_fwd, "K4bwd": n_bwd})
+    if counts != want or variants["K4"][variant] != n_fwd:
+        raise AssertionError(f"{tag}: launches {counts} by kernel "
+                             f"{variants}, want {want}, forward {variant}")
+
+
+def train_headline():
+    """Phase 17 (a): ``launch.train.main`` on qwen2-0.5b at full width and
+    depth, T = 4096, through a fault and its restart."""
+    import math
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    drv = train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, variants = read_launches(), read_variants()
+    step_secs = drv.step_seconds
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n_params = sum(t.numel() for t in tree_leaves(drv.state["params"]))
+    bound = train_peak_bound(cfg, n_params, TRAIN_B, TRAIN_T, "full")
+    log_ = drv.metrics_log
+    events = [(s, k) for s, k, _ in drv.events if k != "straggler"]
+    restored = (TRAIN_FAULT - 1) // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    if events != [(TRAIN_FAULT, "fault"), (restored, "restart")]:
+        raise AssertionError(f"train events {drv.events}: want one fault "
+                             f"at {TRAIN_FAULT}, one restart at {restored}")
+    calls = TRAIN_FAULT + TRAIN_STEPS - restored
+    if len(log_) != calls or drv.step != TRAIN_STEPS:
+        raise AssertionError(f"train log of {len(log_)} steps, want {calls}")
+    # the replayed steps (restored .. fault - 1) against their first run
+    first = [m["loss"] for m in log_[restored:TRAIN_FAULT]]
+    again = [m["loss"] for m in log_[TRAIN_FAULT:2 * TRAIN_FAULT - restored]]
+    replay_gap = max(abs(a - b) / abs(a) for a, b in zip(first, again))
+    if not replay_gap <= 1e-3:
+        raise AssertionError(f"replayed steps' losses {again} != {first}")
+    traj = [m["loss"] for m in log_[:restored] + log_[TRAIN_FAULT:]]
+    if not all(map(math.isfinite, traj)) or \
+            not statistics.mean(traj[-3:]) < traj[0]:
+        raise AssertionError(f"train losses {traj}: not finite and falling")
+    # K4 on every layer: forward twice a step (remat's recompute), backward
+    # once, all on the tensor cores
+    _want_attention(counts, variants, 2 * calls * cfg.n_layers,
+                    calls * cfg.n_layers, "mma", "train headline")
+    if peak > bound:
+        raise AssertionError(f"train peak {peak} > bound {bound}")
+    step_s = statistics.median(drv.step_seconds[1:])
+    tok_s = TRAIN_B * TRAIN_T / step_s
+    log(f"train {TRAIN_ARCH} full width and depth, B={TRAIN_B} T={TRAIN_T}, "
+        f"remat full, {TRAIN_STEPS} steps: losses by step "
+        f"{[round(x, 4) for x in traj]} (mean of the last 3 "
+        f"{statistics.mean(traj[-3:]):.4f} < first {traj[0]:.4f}); fault "
+        f"at step {TRAIN_FAULT}, restart from the step-{restored} "
+        f"checkpoint, replayed losses {again} against {first} (max "
+        f"relative gap {replay_gap:.3e}, bit-equal {again == first})")
+    log(f"train {TRAIN_ARCH}: K4 launches forward {counts['K4']} == 2 x "
+        f"{calls} step passes x {cfg.n_layers} layers (remat recomputes "
+        f"each), backward {counts['K4bwd']} == {calls} x {cfg.n_layers}, "
+        f"by kernel {variants['K4']}; step {step_s:.4f} s (median after the "
+        f"first), {tok_s:.1f} train tokens/s; peak {peak} B <= bound "
+        f"{bound} B ({n_params} params x 14 B + remat's saved inputs + "
+        f"the loss's {LOSS_BYTES_PER_LOGIT} B a logit); wall {wall:.1f} s "
+        f"with {len(drv.step_seconds)} steps and the checkpoints")
+    params = drv.state["params"]
+    del drv
+    free_cuda()
+    return params, {"losses": traj, "replayed": again, "first_run": first,
+                    "replay_bit_equal": again == first, "events": events,
+                    "step_s": step_s, "tokens_per_s": tok_s,
+                    "step_seconds": list(step_secs), "peak": peak,
+                    "bound": bound,
+                    "n_params": n_params, "wall_s": wall,
+                    "k4_launches": counts["K4"],
+                    "k4_bwd_launches": counts["K4bwd"],
+                    "k4_variants": variants["K4"]}
+
+
+def check_against_plain(cfg, params, batch, gk, tag):
+    """K4's bf16 grads ``gk`` against the same step with the plain
+    attention: the plain bf16 grads and, as the reference gradient, K4's
+    on the weights cast to f32. Each leaf of ``gk`` must lie as close to
+    the f32 gradient as the plain attention's does (2x its distance plus
+    ``GRAD_BF16_MAX``). Returns the gaps, peaks, times and the f32 run's
+    K4 launches."""
+    from repro_torch.models.common import tree_map
+    lp, gp, sp, peak_p, counts_p, _ = _grads_on_card(cfg, params, batch,
+                                                     plain=True)
+    if counts_p["K4"] or counts_p["K4bwd"]:
+        raise AssertionError(f"{tag}: the plain twin launched K4")
+    p32 = tree_map(lambda t: t.float(), params)
+    _, g32, s32, peak32, counts32, variants32 = _grads_on_card(
+        cfg.replace(dtype="float32"), p32, batch)
+    del p32
+    if counts32["K4"] != counts32["K4bwd"] or \
+            variants32["K4"]["fma"] != counts32["K4"]:
+        raise AssertionError(f"{tag} f32: launches {counts32} "
+                             f"{variants32}")
+    gaps_k, gaps_p = _leaf_gaps(gk, g32), _leaf_gaps(gp, g32)
+    gaps = _leaf_gaps(gk, gp)
+    del gp, g32
+    excess = max(a / (2 * b + GRAD_BF16_MAX) for a, b in zip(gaps_k, gaps_p))
+    row = {"loss_plain": float(lp), "leaf_gaps_k4_plain": gaps,
+           "leaf_gaps_k4_f32": gaps_k, "leaf_gaps_plain_f32": gaps_p,
+           "excess": excess, "s_plain": sp, "s_f32": s32,
+           "peak_plain": peak_p, "peak_f32": peak32,
+           "f32_k4_launches": counts32["K4"],
+           "f32_k4_bwd_launches": counts32["K4bwd"]}
+    msg = (f"per-leaf relative L2 from the f32 gradient: K4 max "
+           f"{max(gaps_k):.3e}, plain max {max(gaps_p):.3e}, K4 within 2 x "
+           f"plain's + {GRAD_BF16_MAX} (max {excess:.3f}x); K4 from plain "
+           f"max {max(gaps):.3e}; peak plain {peak_p} B, f32 {peak32} B")
+    if not excess <= 1.0:
+        raise AssertionError(f"{tag}: {excess:.3f}x the limit (K4 "
+                             f"{gaps_k}, plain {gaps_p})")
+    free_cuda()
+    return row, msg
+
+
+def train_grad_check(params):
+    """Phase 17 (b): B = 1, T = 4096, full depth, remat none: the grads
+    through K4 against the same step with the plain attention in bf16
+    (``check_against_plain``), K4's peak at least ``PEAK_GAP_MIN`` under
+    the plain one's; in f32, over ``F32_GRAD_LAYERS`` layers (the plain
+    f32 attention's saved scores), within ``GRAD_F32_MAX``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.common import tree_map
+    cfg = get_config(TRAIN_ARCH)
+    batch = _device_batch(DataPipeline(cfg, TRAIN_T, 1, seed=1).batch_at(0))
+    lk, gk, sk, peak_k, counts, variants = _grads_on_card(cfg, params, batch)
+    _want_attention(counts, variants, cfg.n_layers, cfg.n_layers, "mma",
+                    "grad check bfloat16")
+    row, msg = check_against_plain(cfg, params, batch, gk, "grad check")
+    del gk
+    row.update({"layers": cfg.n_layers, "loss_k4": float(lk),
+                "k4_launches": counts["K4"],
+                "k4_bwd_launches": counts["K4bwd"],
+                "k4_variants": variants["K4"], "s_k4": sk,
+                "peak_k4": peak_k})
+    log(f"grad check {TRAIN_ARCH} bfloat16, {cfg.n_layers} layers, B=1 "
+        f"T={TRAIN_T}, remat none: loss {float(lk):.5f} (K4) / "
+        f"{row['loss_plain']:.5f} (plain), {sk:.3f} s / "
+        f"{row['s_plain']:.3f} s; {msg}; K4 peak {peak_k} B")
+    if not row["peak_plain"] - peak_k >= PEAK_GAP_MIN:
+        raise AssertionError(f"K4 peak {peak_k} not {PEAK_GAP_MIN:.0f} B "
+                             f"under the plain {row['peak_plain']}")
+    out = {"bfloat16": row}
+    # f32 over F32_GRAD_LAYERS layers: K4 against plain
+    c = cfg.replace(dtype="float32", n_layers=F32_GRAD_LAYERS)
+    p = {"embed": params["embed"].float(),
+         "final_norm": params["final_norm"].float(),
+         "layers": tree_map(lambda t: t[:F32_GRAD_LAYERS].float(),
+                            params["layers"])}
+    lk, gk, sk, peak_k, counts, variants = _grads_on_card(c, p, batch)
+    _want_attention(counts, variants, c.n_layers, c.n_layers, "fma",
+                    "grad check float32")
+    lp, gp, sp, peak_p, counts_p, _ = _grads_on_card(c, p, batch, plain=True)
+    gaps = _leaf_gaps(gk, gp)
+    del gk, gp, p
+    out["float32"] = {
+        "layers": c.n_layers, "loss_k4": float(lk), "loss_plain": float(lp),
+        "k4_launches": counts["K4"], "k4_bwd_launches": counts["K4bwd"],
+        "k4_variants": variants["K4"], "leaf_gaps": gaps, "s_k4": sk,
+        "s_plain": sp, "peak_k4": peak_k, "peak_plain": peak_p}
+    log(f"grad check {TRAIN_ARCH} float32, {c.n_layers} layers, B=1 "
+        f"T={TRAIN_T}, remat none: loss {float(lk):.6f} (K4) / "
+        f"{float(lp):.6f} (plain); per-leaf relative L2 max "
+        f"{max(gaps):.3e} <= {GRAD_F32_MAX}; {sk:.3f} s / {sp:.3f} s; peak "
+        f"{peak_k} B / {peak_p} B")
+    if not max(gaps) <= GRAD_F32_MAX:
+        raise AssertionError(f"grad check float32: {max(gaps):.3e} > "
+                             f"{GRAD_F32_MAX}")
+    free_cuda()
+    return out
+
+
+def train_microbatch(params):
+    """Phase 17 (c): ``make_train_step(microbatches=2)`` against one pass
+    on a batch of 4 x 4096, with tests/test_microbatch.py's tolerances."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.optim import OptConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    batch = _device_batch(DataPipeline(cfg, TRAIN_T, TRAIN_B, seed=2)
+                          .batch_at(0))
+    oc = OptConfig(lr=1e-3)
+    res = {}
+    for n in (1, 2):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, _, m = make_train_step(cfg, oc=oc, remat="full", microbatches=n)(
+            params, adamw_init(oc, params), batch)
+        loss = float(m["loss"])
+        res[n] = (p, loss, time.perf_counter() - t0,
+                  torch.cuda.max_memory_allocated())
+    gap = abs(res[1][1] - res[2][1])
+    worst = 0.0
+    for a, b in zip(tree_flatten(res[1][0])[0], tree_flatten(res[2][0])[0]):
+        a, b = a.float(), b.float()
+        excess = ((a - b).abs() / (1e-3 + 5e-2 * b.abs())).max().item()
+        worst = max(worst, excess)
+    log(f"microbatches 2 against 1 ({TRAIN_B} x {TRAIN_T}, remat full): loss "
+        f"{res[2][1]:.5f} / {res[1][1]:.5f} (gap {gap:.2e} < 1e-3); params "
+        f"within rtol 5e-2, atol 1e-3 (max {worst:.3f}x); step "
+        f"{res[2][2]:.3f} s / {res[1][2]:.3f} s; peak {res[2][3]} B / "
+        f"{res[1][3]} B")
+    if not gap < 1e-3 or not worst <= 1.0:
+        raise AssertionError(f"microbatching: loss gap {gap}, params "
+                             f"{worst}x the tolerance")
+    out = {"loss_1": res[1][1], "loss_2": res[2][1], "params_excess": worst,
+           "s_1": res[1][2], "s_2": res[2][2], "peak_1": res[1][3],
+           "peak_2": res[2][3]}
+    del res
+    free_cuda()
+    return out
+
+
+# kernel-name groups of a training step's device time (torch.profiler)
+STEP_GROUPS = (("K4 backward", ("::dkdv_kernel<", "::rows_kernel<")),
+               ("K4 forward", (FLASH_MMA, FLASH_FMA)),
+               ("cuBLAS products", ("gemm", "Gemm", "sm90_xmma", "cutlass",
+                                    "nvjet")))
+
+
+def train_profile(params):
+    """Where a headline training step's time goes: one
+    ``make_train_step`` call (B = 4, T = 4096, remat full) under
+    ``torch.profiler`` after a warm-up step; device time by kernel group
+    (``STEP_GROUPS``, the rest "other kernels") and the busy share of the
+    profiled wall."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    batch = _device_batch(DataPipeline(cfg, TRAIN_T, TRAIN_B, seed=4)
+                          .batch_at(0))
+    oc = OptConfig(lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, oc=oc, remat="full")
+    opt = adamw_init(oc, params)
+    free_cuda()
+    step(params, opt, batch)      # warm-up
+    torch.cuda.synchronize()
+    events, wall_us = profiled(lambda: step(params, opt, batch))
+    total = kernel_us(events)
+    groups = {name: kernel_us(events, names) for name, names in STEP_GROUPS}
+    groups["other kernels"] = total - sum(groups.values())
+    top = sorted(((e.key, e.self_device_time_total) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.lower().startswith("memcpy")),
+                 key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_us / 1e3, "kernel_ms": total / 1e3,
+           "busy_share": total / wall_us,
+           "ms_by_group": {k: v / 1e3 for k, v in groups.items()},
+           "top": [{"kernel": k[:80], "ms": us / 1e3} for k, us in top]}
+    log(f"profile train step {TRAIN_ARCH} B={TRAIN_B} T={TRAIN_T} remat "
+        f"full: wall {wall_us / 1e3:.1f} ms (profiled), device kernels "
+        f"{total / 1e3:.1f} ms (busy share {total / wall_us:.3f}); "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms ({v / max(total, 1):.3f})"
+                    for k, v in groups.items()))
+    for row in out["top"]:
+        log(f"  {row['ms']:.3f} ms  {row['kernel']}")
+    del opt
+    free_cuda()
+    return out
+
+
+def _family_batch(arch, cfg, B, T):
+    """The family's training batch on the card: the synthetic stream, or
+    for the vlm phase 9's 1024 vision embeddings, 3072 text tokens and 3D
+    positions, with seeded labels and a ``loss_mask`` that leaves the
+    vision rows out."""
+    import torch
+    from repro_torch.data import DataPipeline
+    if cfg.family != "vlm":
+        return _device_batch(DataPipeline(cfg, T, B, seed=3).batch_at(0))
+    batch = _vlm_inputs(cfg)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    nv = cfg.n_vision_tokens
+    S = nv + VLM_TEXT_TOKENS
+    batch["labels"] = torch.randint(0, cfg.vocab, (1, S), generator=g,
+                                    device="cuda", dtype=torch.int32)
+    batch["loss_mask"] = (torch.arange(S, device="cuda") >= nv)[None] \
+        .float()
+    return batch
+
+
+def train_families():
+    """Phase 17 (d): one remat-none step of each family at its published
+    widths (depth cut where stated), grads finite, against the plain
+    attention's where its saved scores fit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_flatten, tree_leaves
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+    out = {"launches": {}, "bwd_launches": {}, "k1_launches": {},
+           "variants": {}}
+    for arch, cut, B, T in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if cut:
+            cfg = cfg.replace(n_layers=cut)
+        free_cuda()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"train {arch}: {cfg.n_layers} of {full_layers} layers, "
+            f"{n_params} params drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s ({14 * n_params} B at 14 B a "
+            f"param)")
+        batch = _family_batch(arch, cfg, B, T)
+        loss, grads, secs, peak, counts, variants = _grads_on_card(
+            cfg, params, batch)
+        n_k4 = 0
+        if T > 2048:
+            n_k4 = cfg.n_layers // cfg.shared_attn_every \
+                if cfg.family == "hybrid" else \
+                (0 if cfg.family == "ssm" else cfg.n_layers)
+        if counts["K4"] != n_k4 or counts["K4bwd"] != n_k4 \
+                or variants["K4"]["mma"] != n_k4 or counts["K2"] \
+                or counts["K3"]:
+            raise AssertionError(f"train {arch}: launches {counts} "
+                                 f"{variants}, want K4 {n_k4} and back")
+        if cfg.moe is not None and not (
+                variants["K1"]["fma"] == cfg.n_layers
+                and variants["K1"]["mma"] > 0
+                and variants["K1"]["mma"] % 3 == 0):
+            raise AssertionError(f"train {arch}: K1 launches {variants}: "
+                                 "want a router call a layer (f32) and 3 "
+                                 "an expert call (bf16)")
+        _finite(grads, arch)
+        row = {"layers": cfg.n_layers, "B": B, "T": T, "params": n_params,
+               "loss": float(loss), "s": secs, "peak": peak,
+               "k4_launches": counts["K4"], "k4_bwd_launches":
+               counts["K4bwd"], "k1_launches": counts["K1"],
+               "k1_variants": variants["K1"]}
+        msg = (f"train {arch} B={B} T={T} remat none: loss {float(loss):.4f}"
+               f", grads finite, {secs:.3f} s, peak {peak} B; K4 "
+               f"{counts['K4']} forward / {counts['K4bwd']} backward, K1 "
+               f"{counts['K1']} {variants['K1']}")
+        if arch in PLAIN_TWIN:
+            twin, twin_msg = check_against_plain(cfg, params, batch, grads,
+                                                 f"train {arch}")
+            row.update(twin)
+            msg += f"; {twin_msg}"
+        # and the step's AdamW update
+        oc = OptConfig()
+        new, _, metrics = adamw_update(oc, grads, adamw_init(oc, params),
+                                       params)
+        if not all(bool(torch.isfinite(t).all())
+                   for t in tree_flatten(new)[0]):
+            raise AssertionError(f"train {arch}: non-finite update")
+        row["grad_norm"] = float(metrics["grad_norm"])
+        log(msg + f"; AdamW update finite (grad norm {row['grad_norm']:.4f})")
+        out[arch] = row
+        out["launches"][arch] = counts["K4"]
+        out["bwd_launches"][arch] = counts["K4bwd"]
+        out["k1_launches"][arch] = counts["K1"]
+        out["variants"][arch] = variants["K4"]
+        del params, grads, new, batch
+        free_cuda()
+    return out
+
+
+def training_path():
+    """Phase 17: training on the card."""
+    params, head = train_headline()
+    grad = train_grad_check(params)
+    micro = train_microbatch(params)
+    prof = train_profile(params)
+    del params
+    free_cuda()
+    fam = train_families()
+    fwd = {f"{TRAIN_ARCH} train": head["k4_launches"],
+           **{f"{TRAIN_ARCH} grad check {dt}": row["k4_launches"]
+              for dt, row in grad.items()},
+           f"{TRAIN_ARCH} grad check f32 reference":
+               grad["bfloat16"]["f32_k4_launches"],
+           **{f"{a} train f32 reference": fam[a]["f32_k4_launches"]
+              for a in PLAIN_TWIN},
+           **{f"{a} train": n for a, n in fam["launches"].items() if n}}
+    bwd = {f"{TRAIN_ARCH} train": head["k4_bwd_launches"],
+           **{f"{TRAIN_ARCH} grad check {dt}": row["k4_bwd_launches"]
+              for dt, row in grad.items()},
+           f"{TRAIN_ARCH} grad check f32 reference":
+               grad["bfloat16"]["f32_k4_bwd_launches"],
+           **{f"{a} train f32 reference": fam[a]["f32_k4_bwd_launches"]
+              for a in PLAIN_TWIN},
+           **{f"{a} train": n for a, n in fam["bwd_launches"].items()
+              if n}}
+    return {"headline": head, "grad_check": grad, "microbatch": micro,
+            "profile": prof, "families": fam, "k4_by_path": fwd,
+            "k4_bwd_by_path": bwd,
+            "k1_launches": sum(fam["k1_launches"].values())}
+
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -4095,7 +4893,9 @@ def kernel_designs():
         "flash_attention": "bf16 (the VLM path): "
         + source_design("flash_attention_mma") + " f32 (and bf16 at "
         "unaligned shapes): the CUDA-core FMA kernel of "
-        "flash_attention.cu"}
+        "flash_attention.cu",
+        "flash_attention_backward": "bf16 and f32 (training at T > "
+        "2048): " + source_design("flash_attention_bwd")}
 
 
 def kernel_entry(name, replaces, launches, max_err, shapes, headline,
@@ -4157,6 +4957,8 @@ def main() -> int:
     lap("K1-K3 checks")
     fkern = flash_kernel_phase()
     lap("K4 checks")
+    bkern = flash_bwd_phase()
+    lap("K4 backward checks")
 
     def headline(shapes):
         return next(s for s in shapes if s["M"] == 4 and s["K"] == 896)
@@ -4185,6 +4987,8 @@ def main() -> int:
     lap("phases 14-15")
     families = families_path(main["link_gbps"])
     lap("phase 16")
+    training = training_path()
+    lap("phase 17")
     faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
@@ -4196,7 +5000,8 @@ def main() -> int:
                                 fkern["block_q_bit_equal"]},
                     "moe": moe, "paged": main["paged"], "spec": spec,
                     "faults": faults, "gateway": gateway,
-                    "families": families,
+                    "families": families, "training": training,
+                    "k4_backward": bkern,
                     "phase_seconds": {k: v for k, v in laps.items()
                                       if k != "_last"},
                     "seconds": time.perf_counter() - t_start}))
@@ -4209,7 +5014,7 @@ def main() -> int:
                      + main["paged"]["launches"] + spec["launches"]
                      + spec["draft_launches"] + faults["launches"]
                      + faults["moe"]["launches"] + faults["spec"]["k1"]
-                     + gateway["launches"],
+                     + gateway["launches"] + training["k1_launches"],
                      kern["max_abs_err"], kern["shapes"],
                      headline(kern["shapes"]),
                      source="streamed_matmul_mma"),
@@ -4227,10 +5032,15 @@ def main() -> int:
                      source="streamed_matmul_mma"),
         kernel_entry("flash_attention", "flash_attention.py:104",
                      vision["launches"] + language["launches"]
-                     + sum(families["launches"].values()),
+                     + sum(families["launches"].values())
+                     + sum(training["k4_by_path"].values()),
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
-                     source="flash_attention_mma")]
+                     source="flash_attention_mma"),
+        kernel_entry("flash_attention_backward", "flash_attention.py:104",
+                     sum(training["k4_bwd_by_path"].values()),
+                     bkern["max_abs_err"], bkern["shapes"],
+                     bkern["shapes"][0], source="flash_attention_bwd")]
     kernels[0].update({"launches_by_path": {
                            "qwen2-0.5b": main["launches"],
                            MOE_ARCH: moe["launches"],
@@ -4243,7 +5053,8 @@ def main() -> int:
                            f"{MOE_ARCH} faults": faults["moe"]["launches"],
                            f"{SPEC_ARCH} spec faults, with its draft":
                                faults["spec"]["k1"],
-                           "qwen2-0.5b gateway": gateway["launches"]},
+                           "qwen2-0.5b gateway": gateway["launches"],
+                           "training (phase 17)": training["k1_launches"]},
                        "launches_by_variant": {
                            "qwen2-0.5b": main["variants"]["K1"],
                            MOE_ARCH: moe["variants"],
@@ -4262,10 +5073,17 @@ def main() -> int:
             "round_excess": qkern[mode]["round_excess"],
             "planted_faults": qkern[mode]["faults"]})
     kernels[-1].update({
+        "completes": "the forward K4 (flash_attention.py:104), whose "
+                     "Pallas kernel has no backward: the reference "
+                     "differentiates its jnp attend_flash by autodiff",
+        "launches_by_path": training["k4_bwd_by_path"],
+        "checked_shapes": bkern["checked"],
+        "planted_faults": bkern["planted_faults"]})
+    kernels[-2].update({
         "launches_by_path": {
             "vision_720p_encode": vision["launches"],
             f"language_forward_T{language['T']}": language["launches"],
-            **families["launches"]},
+            **families["launches"], **training["k4_by_path"]},
         "launches_by_variant": {
             "vision_720p_encode": vision["variant_launches"],
             f"language_forward_T{language['T']}":

@@ -2,7 +2,9 @@
 
 ``resolve_device`` is the rule for entry points; ``on_cpu`` is the one
 every kernel wrapper follows: tensors on the CPU take the plain version,
-tensors on one CUDA device take the kernel, and anything else raises."""
+tensors on one CUDA device take the kernel, and anything else raises.
+``needs_grad`` says whether autograd records a call (the wrappers then
+take their gradient's path, the SSD its out-of-place forms)."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +49,10 @@ def on_cpu(name, x, *ws) -> bool:
         raise RuntimeError(f"{name}: CUDA tensor given but CUDA is not "
                            "available")
     return False
+
+
+def needs_grad(*ts) -> bool:
+    """True when autograd records ops on ``ts``: grad mode on and one of
+    them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in ts)

@@ -27,7 +27,10 @@
 // so the rounding of the online softmax. Results are bit-equal across B
 // and H. Ragged tails are masked: rows past Tq are not stored, keys past
 // Tk score NEG_INF and weigh 0, and zero-filled tiles keep 0 * garbage out
-// of the sums. Any hd <= 128 runs.
+// of the sums. Any hd <= 128 runs. Given an lse pointer (training: K4's
+// backward, flash_attention_bwd.cu, recomputes p from it), each stored row
+// also writes its f32 logsumexp m + log(l) of the scaled scores into lse
+// (B, H, Tq); given none, nothing else changes.
 //
 // Bound. The work is 4 * B * H * Tq * Tk * hd operations (halved for
 // causal) against the bytes of q, k, v and o: at the vision encoder's
@@ -91,6 +94,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Tq) row logsumexp, or null
   int H, G, Tq, Tk, hd, causal, block_k;
   float scale;
   Strides st;
@@ -235,6 +239,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Params p) {
     const int r = ty * 4 + i;
     if (r >= nrows) continue;
     const float lv = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[static_cast<size_t>(bh) * p.Tq + row0 + r] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < NH; ++c)
 #pragma unroll
@@ -259,9 +265,10 @@ cudaError_t launch(const Params& p, int BH, cudaStream_t s) {
 }
 
 template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int B, int H,
-        int KV, int Tq, int Tk, int hd, const long long* strides, int causal,
-        int block_k, float scale, void* stream) {
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        int B, int H, int KV, int Tq, int Tk, int hd,
+        const long long* strides, int causal, int block_k, float scale,
+        void* stream) {
   if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || Tq < 1 || Tk < 1 ||
       block_k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -270,6 +277,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.H = H;
   p.G = H / KV;
   p.Tq = Tq;
@@ -290,21 +298,23 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace
 
 extern "C" int k4_flash_attention_bf16(const void* q, const void* k,
-                                       const void* v, void* o, int B, int H,
-                                       int KV, int Tq, int Tk, int hd,
+                                       const void* v, void* o, float* lse,
+                                       int B, int H, int KV, int Tq, int Tk,
+                                       int hd,
                                        const long long* strides, int causal,
                                        int block_k, float scale,
                                        void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, B, H, KV, Tq, Tk, hd, strides, causal,
-                            block_k, scale, stream);
+  return run<__nv_bfloat16>(q, k, v, o, lse, B, H, KV, Tq, Tk, hd, strides,
+                            causal, block_k, scale, stream);
 }
 
 extern "C" int k4_flash_attention_f32(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
-                                      int KV, int Tq, int Tk, int hd,
+                                      const void* v, void* o, float* lse,
+                                      int B, int H, int KV, int Tq, int Tk,
+                                      int hd,
                                       const long long* strides, int causal,
                                       int block_k, float scale,
                                       void* stream) {
-  return run<float>(q, k, v, o, B, H, KV, Tq, Tk, hd, strides, causal,
+  return run<float>(q, k, v, o, lse, B, H, KV, Tq, Tk, hd, strides, causal,
                     block_k, scale, stream);
 }

@@ -18,7 +18,11 @@
 // keys, the last one ragged; rows past Tq are not stored, keys past a
 // tile's end score NEG_INF and the tile is zero-filled. The query axis is
 // tiled by the kernel's own 128 rows, so the reference's Q-chunk changes no
-// bit. Numerics: the scores are f32 sums of exact bf16 products, scaled in
+// bit. Given an lse pointer (training: K4's backward,
+// flash_attention_bwd.cu, recomputes p from it), each stored row also
+// writes its f32 logsumexp of the scaled scores, (m + log2 l) ln 2 in the
+// log2 domain below, into lse (B, H, Tq); given none, nothing else changes.
+// Numerics: the scores are f32 sums of exact bf16 products, scaled in
 // the log2 domain (hd^-0.5 * log2(e), then ex2.approx); p is rounded to bf16
 // before p @ v (the Pallas kernel keeps p in f32; the JAX model path's jnp
 // attend_flash casts p to the input dtype as here); l sums the f32 p.
@@ -81,6 +85,7 @@ constexpr int BKV = 64;       // keys per kv tile
 constexpr int THREADS = 128;  // four warps
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
@@ -91,6 +96,7 @@ struct Params {
   const bf16* k;
   const bf16* v;
   bf16* o;
+  float* lse;  // (B, H, Tq) row logsumexp, or null
   int H, G, Tq, Tk, hd, causal, block_k;
   float scale;
   Strides st;
@@ -368,6 +374,9 @@ __global__ void __launch_bounds__(THREADS) flash_mma_kernel(Params p) {
       const int row = warp_first + 16 * i + g + 8 * r;
       if (row >= row_end) continue;
       const float lv = fmaxf(l[i][r], 1e-30f);
+      if (p.lse != nullptr && tig == 0)
+        p.lse[static_cast<size_t>(bh) * p.Tq + row] =
+            (m[i][r] + log2f(l[i][r])) * LN2;
       bf16* orow = o + row * p.st.ot;
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
@@ -402,9 +411,10 @@ bool aligned16(const void* ptr) {
 // the shapes the wrapper's kernel_variant sends here (else
 // cudaErrorInvalidValue).
 extern "C" int k4_flash_attention_bf16_mma(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int H, int KV, int Tq, int Tk,
-                                           int hd, const long long* strides,
+                                           const void* v, void* o,
+                                           float* lse, int B, int H, int KV,
+                                           int Tq, int Tk, int hd,
+                                           const long long* strides,
                                            int causal, int block_k,
                                            float scale, void* stream) {
   if (hd < 8 || hd > 128 || hd % 8 != 0 || KV < 1 || H % KV != 0 ||
@@ -419,6 +429,7 @@ extern "C" int k4_flash_attention_bf16_mma(const void* q, const void* k,
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
+  p.lse = lse;
   p.H = H;
   p.G = H / KV;
   p.Tq = Tq;

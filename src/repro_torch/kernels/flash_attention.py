@@ -25,6 +25,19 @@ chunks of ``block_k`` keys, each walked in fixed tiles. Unlike the Pallas
 kernel, ragged lengths are masked (rows past Tq are not stored, keys past
 Tk weigh 0), so no length has to divide a chunk. Any head dim up to 128
 runs; the inputs need a contiguous head dim and nothing else.
+
+Gradients. When autograd needs one (grad mode on and q, k or v requiring
+grad), ``flash_attention`` and ``ops.flash_attention_bthd`` run through
+``FlashAttention``, a ``torch.autograd.Function``: its forward is the same
+kernel asked for its f32 row logsumexp as well (``lse``, (B, H, Tq); the
+output's bits and the launch count are those of the call without it), and
+its backward is ``flash_attention_backward``: on a CUDA tensor the
+hand-written kernels of ``csrc/flash_attention_bwd.cu`` (three passes, f32
+sums on the CUDA cores, no atomics; the backward reads q, k, v, the output
+gradient and lse, not the output; ``flash_attention_backward.launches``
+counts one a call), on a CPU tensor the plain
+``kernels/ref.py::flash_attention_bwd_ref``. Under no grad (serving) the
+wrappers take the kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -33,17 +46,22 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import needs_grad, on_cpu
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 MAX_HEAD_DIM = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.c_longlong * 12
-# q k v o B H KV Tq Tk hd strides causal block_k scale stream
-_K4_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+# q k v o lse B H KV Tq Tk hd strides causal block_k scale stream
+_K4_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), _I, _I, ctypes.c_float, _P]
+# q k v dout lse delta dq dk dv B H KV Tq Tk hd strides causal scale stream
+_K4_BWD_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                      _I, ctypes.c_float, _P]
+_BWD_STRIDES = ctypes.c_longlong * 21
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = CudaLibrary(
     _CSRC / "flash_attention.cu",
@@ -51,6 +69,10 @@ LIBRARY = CudaLibrary(
      "k4_flash_attention_f32": _K4_ARGS})
 LIBRARY_MMA = CudaLibrary(_CSRC / "flash_attention_mma.cu",
                           {"k4_flash_attention_bf16_mma": _K4_ARGS})
+LIBRARY_BWD = CudaLibrary(
+    _CSRC / "flash_attention_bwd.cu",
+    {"k4_flash_attention_bwd_bf16": _K4_BWD_ARGS,
+     "k4_flash_attention_bwd_f32": _K4_BWD_ARGS})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _INT_MAX = 2 ** 31 - 1
 _GRID_Y_MAX = 65535
@@ -102,10 +124,12 @@ def kernel_variant(q, k, v, out) -> str:
     return "fma"
 
 
-def launch(q, k, v, out, *, causal, block_q, block_k):
+def launch(q, k, v, out, *, causal, block_q, block_k, lse=None):
     """Run K4 into ``out`` (q's shape and dtype, any strides with a
     contiguous head dim) on the current stream; counts one launch.
-    ``flash_attention`` and ``ops.flash_attention_bthd`` call it."""
+    ``flash_attention`` and ``ops.flash_attention_bthd`` call it. ``lse``:
+    a contiguous f32 (B, H, Tq) tensor that also receives each row's
+    logsumexp of the scaled scores, or None."""
     B, H, KV, Tq, Tk, hd = check_inputs(q, k, v, block_q, block_k)
     if out.shape != q.shape or out.dtype != q.dtype or out.stride(-1) != 1 \
             or out.device != q.device:
@@ -114,6 +138,11 @@ def launch(q, k, v, out, *, causal, block_q, block_k):
         raise ValueError("flash_attention: no keys")
     if B * H * Tq == 0:
         return out
+    if lse is not None and (lse.shape != (B, H, Tq) or lse.dtype !=
+                            torch.float32 or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError("flash_attention: lse must be a contiguous f32 "
+                         f"({B}, {H}, {Tq}) tensor on q's device")
     strides = _STRIDES(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     variant = kernel_variant(q, k, v, out)
     fn = LIBRARY_MMA.lib().k4_flash_attention_bf16_mma if variant == "mma" \
@@ -121,6 +150,7 @@ def launch(q, k, v, out, *, causal, block_q, block_k):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 B, H, KV, Tq, Tk, hd, strides, int(bool(causal)),
                 block_k, hd ** -0.5, stream)
     if rc != 0:
@@ -139,6 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     f32. Returns (B, H, Tq, hd) in ``q.dtype``. Launch count:
     ``flash_attention.launches``, and per kernel
     ``flash_attention.variant_launches`` (``kernel_variant``)."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, block_q, block_k, False)
     cpu = on_cpu("flash_attention", q, k, v)
     check_inputs(q, k, v, block_q, block_k)
     if cpu:
@@ -150,3 +182,109 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.variant_launches = {"mma": 0, "fma": 0}
+
+
+def _heads(t, bthd):
+    """A (B, T, heads, hd) tensor as the (B, heads, T, hd) view K4 takes
+    (``bthd``), or the tensor itself."""
+    return t.transpose(1, 2) if bthd else t
+
+
+def launch_backward(q, k, v, dout, lse, dq, dk, dv, *, causal):
+    """K4's backward on the current stream: the gradients of
+    ``flash_attention(q, k, v)`` for the output gradient ``dout``, given
+    the forward's row logsumexp ``lse``, written into ``dq``, ``dk``,
+    ``dv`` (the inputs' shapes and dtype, any strides with a contiguous
+    head dim); counts one launch (its three kernels)."""
+    B, H, KV, Tq, Tk, hd = check_inputs(q, k, v, 1, 1)
+    ts = (dout, dq, dk, dv)
+    like = (q, q, k, v)
+    if any(t.shape != r.shape or t.dtype != q.dtype or t.stride(-1) != 1
+           or t.device != q.device for t, r in zip(ts, like)):
+        raise ValueError("flash_attention_backward: dout, dq, dk, dv do not "
+                         "match q, k, v")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be a "
+                         f"contiguous f32 ({B}, {H}, {Tq}) tensor")
+    if B * H * Tq == 0 or Tk == 0:
+        for t in (dq, dk, dv):
+            t.zero_()
+        return
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    strides = _BWD_STRIDES(*(s for t in (q, k, v, dout, dq, dk, dv)
+                             for s in t.stride()[:3]))
+    fn = getattr(LIBRARY_BWD.lib(),
+                 f"k4_flash_attention_bwd_{_SUFFIX[q.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk,
+                                          dv)),
+                B, H, KV, Tq, Tk, hd, strides, int(bool(causal)), hd ** -0.5,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"cudaError {rc} at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}")
+    flash_attention_backward.launches += 1
+    flash_attention_backward.variant_launches["fma"] += 1
+
+
+def flash_attention_backward(q, k, v, dout, lse, *, causal, bthd=False):
+    """The gradients (dq, dk, dv) of ``K4(q, k, v)`` for the output
+    gradient ``dout``, given the forward's f32 row logsumexp ``lse``
+    (B, H, Tq); in the inputs' layout ((B, H, T, hd), or (B, T, H, hd) with
+    ``bthd``) and dtype. CPU tensors take ``flash_attention_bwd_ref``; CUDA
+    tensors launch the backward kernel (or raise). Launch count:
+    ``flash_attention_backward.launches`` (and ``variant_launches``: all
+    ``"fma"``, the CUDA cores)."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    views = [_heads(t, bthd) for t in (q, k, v, dout)]
+    if on_cpu("flash_attention_backward", q, k, v, dout, lse):
+        grads = flash_attention_bwd_ref(*views, lse, causal=causal)
+        return tuple(_heads(g, bthd) for g in grads)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    launch_backward(*views, lse, *(_heads(t, bthd) for t in (dq, dk, dv)),
+                    causal=causal)
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.variant_launches = {"fma": 0}
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with its gradient. ``apply(q, k, v, causal, block_q, block_k,
+    bthd)``: q, k, v in K4's (B, heads, T, hd) layout, or in the model's
+    (B, T, heads, hd) with ``bthd``; the output in the same layout. The
+    forward saves q, k, v and the f32 row logsumexp; the backward is
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, bthd):
+        qh, kh, vh = (_heads(t, bthd) for t in (q, k, v))
+        cpu = on_cpu("flash_attention", q, k, v)
+        B, H, _, Tq, _, _ = check_inputs(qh, kh, vh, block_q, block_k)
+        if cpu:
+            oh, lse = flash_attention_ref(qh, kh, vh, causal=causal,
+                                          return_lse=True)
+            out = _heads(oh, bthd)
+        else:
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            lse = torch.empty((B, H, Tq), dtype=torch.float32,
+                              device=q.device)
+            launch(qh, kh, vh, _heads(out, bthd), causal=causal,
+                   block_q=block_q, block_k=block_k, lse=lse)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.bthd = causal, bthd
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, lse,
+                                              causal=ctx.causal,
+                                              bthd=ctx.bthd)
+        return dq, dk, dv, None, None, None, None

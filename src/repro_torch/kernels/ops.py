@@ -5,13 +5,15 @@ the attention layer holds them, to K4's (B, heads, T, hd) as strided views
 (no copy) and writes K4's output straight into a (B, T, H, hd) tensor. The
 reference's ``force`` / ``interpret`` switch has no counterpart: the
 tensors' device decides, CPU tensors taking the plain version and CUDA
-tensors the kernel.
+tensors the kernel. When autograd needs a gradient the call runs through
+``flash_attention.FlashAttention`` in this layout, whose backward writes
+dq, dk and dv straight into (B, T, heads, hd) tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import needs_grad, on_cpu
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -20,6 +22,9 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
                          block_k: int = 128) -> torch.Tensor:
     """q: (B, T, H, hd); k, v: (B, S, KV, hd) -> (B, T, H, hd)."""
+    if needs_grad(q, k, v):
+        return fa.FlashAttention.apply(q, k, v, causal, block_q, block_k,
+                                       True)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     cpu = on_cpu("flash_attention_bthd", q, k, v)
     fa.check_inputs(qh, kh, vh, block_q, block_k)

@@ -21,6 +21,17 @@ ragged quantisation groups, so any (M, K, N) and any group count are
 accepted: the dense FFN of qwen2-0.5b (d=896, f=4864) and the smoke widths
 (d=56, f=112) both run through them.
 
+Gradients. When autograd needs one (grad mode on and x or w requiring
+grad), ``streamed_matmul`` runs through ``StreamedMatmul``, a
+``torch.autograd.Function``: the forward is the same kernel (one launch),
+the backward is dx = dy @ w^T and dw = x^T @ dy by ``torch.matmul`` in the
+operands' dtype with f32 sums. The JAX package differentiates its MoE
+experts' and router's products by autodiff of jnp einsums outside any
+Pallas kernel, so those two products are plain library calls here too.
+K2 and K3 take no gradient: their weights are integer codes, which the
+reference cannot differentiate either, and a call that autograd would
+need to differentiate raises.
+
 Grouping convention shared by every quantiser here, as in the reference:
 for a (K, N) matrix and a nominal group size ``g0``, the K axis is split
 into ``G = ceil(K / g0)`` balanced groups of ``g = ceil(K / G)`` rows
@@ -37,7 +48,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.device import on_cpu
+from repro_torch.device import needs_grad, on_cpu
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import (streamed_matmul_int4_ref,
                                      streamed_matmul_int8_ref,
@@ -286,7 +297,40 @@ def _launch(name, fn_name, x, ptrs, M, N, K, extra=()):
 def streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1. x: (M, K) activations; w: (K, N) weights of x's dtype. Returns
     (M, N) in ``x.dtype``. Launch count: ``streamed_matmul.launches`` (one
-    per call), and per kernel ``streamed_matmul.variant_launches``."""
+    per call), and per kernel ``streamed_matmul.variant_launches``. Under
+    autograd it runs through ``StreamedMatmul`` (the same launch)."""
+    if needs_grad(x, w):
+        return StreamedMatmul.apply(x, w)
+    return _streamed_matmul(x, w)
+
+
+class StreamedMatmul(torch.autograd.Function):
+    """K1 with its gradient: the forward is K1, the backward dx = dy @ w^T
+    and dw = x^T @ dy through ``torch.matmul`` (operands' dtype, f32
+    sums)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _streamed_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ dy if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def _no_grad_only(name, x):
+    """K2 and K3 take no gradient (integer weights)."""
+    if needs_grad(x):
+        raise RuntimeError(f"{name} takes no gradient: quantised weights "
+                           "are not trained (K2 and K3 have no backward)")
+
+
+def _streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K1's launch (or its plain version on the CPU), counted."""
     if on_cpu("streamed_matmul", x, w):
         return streamed_matmul_ref(x, w)
     if w.dtype != x.dtype:
@@ -359,6 +403,7 @@ def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
     in ``x.dtype``. Launch count: ``streamed_matmul_int8.launches``, and
     per kernel ``streamed_matmul_int8.variant_launches``."""
     name = "streamed_matmul_int8"
+    _no_grad_only(name, x)
     if on_cpu(name, x, w_q, scales):
         return streamed_matmul_int8_ref(x, w_q, scales)
     M, K, N = _check(name, x, w_q, w_q.shape[0], w_q.shape[-1])
@@ -394,6 +439,7 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
     count: ``streamed_matmul_int4.launches``, and per kernel
     ``streamed_matmul_int4.variant_launches``."""
     name = "streamed_matmul_int4"
+    _no_grad_only(name, x)
     if on_cpu(name, x, w_packed, scales, zeros):
         return streamed_matmul_int4_ref(x, w_packed, scales, zeros)
     M, K, N = _check(name, x, w_packed, 2 * w_packed.shape[0],

@@ -1,5 +1,6 @@
-"""Public model API: ``build_model(cfg)`` -> Model with init/apply, and the
-bridge that carries the JAX package's parameters (as numpy) into the port.
+"""Public model API: ``build_model(cfg)`` -> Model with init/apply/loss, the
+masked LM ``cross_entropy``, and the bridge that carries the JAX package's
+parameters (as numpy) into the port.
 """
 from __future__ import annotations
 
@@ -40,9 +41,18 @@ class Model:
         """The family's ``nn.Module`` over ``params``."""
         return self.impl.module(self.cfg, params)
 
-    def apply(self, params, batch, cache=None, cache_pos=None):
+    def apply(self, params, batch, cache=None, cache_pos=None,
+              remat="none"):
+        """``remat``: ``"none"``, ``"full"`` (each layer, group or pair
+        recomputed in the backward) or ``"dots"`` (the dense decoder's
+        layers keep their 2-D products' outputs), as the reference's."""
         return self.impl.forward(params, self.cfg, batch, cache=cache,
-                                 cache_pos=cache_pos)
+                                 cache_pos=cache_pos, remat=remat)
+
+    # ---------------- loss ----------------
+    def loss(self, params, batch, remat="none"):
+        logits, _ = self.apply(params, batch, remat=remat)
+        return cross_entropy(self.cfg, logits, batch)
 
     # ---------------- serving steps ----------------
     def prefill(self, params, batch, cache):
@@ -61,13 +71,39 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg)
 
 
+# ---------------------------------------------------------------- loss
+def cross_entropy(cfg, logits, batch):  # noqa: ARG001
+    """Masked LM cross-entropy in f32, the reference's math op for op: the
+    row max detached, ``log(sum(exp(lg - max))) + max``, the label's logit
+    picked by an iota mask (a sum over the vocab of ``where(iota == label,
+    lg, 0)``), and the mean over ``loss_mask`` (all ones when absent)
+    divided by ``max(sum(mask), 1)``. logits: (B, T, V), or (B, T, nq, V)
+    for the audio family; labels: logits' shape without V."""
+    labels = batch["labels"].to(torch.int64)
+    lg = logits.to(torch.float32)
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
+    vocab_iota = torch.arange(lg.shape[-1], device=lg.device)
+    label_logit = torch.sum(
+        torch.where(vocab_iota == labels[..., None], lg, 0.0), dim=-1)
+    nll = lse - label_logit
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=lg.device)
+    mask = mask.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=lg.device)
+    return torch.sum(nll * mask) / torch.maximum(torch.sum(mask), one)
+
+
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     """One array -> a tensor that owns its memory, bit for bit.
 
     ``torch.from_numpy`` rejects numpy's bfloat16 extension dtype, so bf16
     arrays go through their uint16 bit pattern. Arrays read back from JAX
-    are read-only; the copy gives torch a writable buffer."""
-    a = np.ascontiguousarray(a)
+    are read-only; the copy gives torch a writable buffer. A 0-dim array
+    stays 0-dim (``np.ascontiguousarray`` alone would make it (1,))."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())

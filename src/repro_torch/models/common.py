@@ -1,9 +1,11 @@
 """Shared layer primitives: norms, positions (RoPE, M-RoPE, sinusoidal),
-init, greedy pick."""
+init, greedy pick, and the remat policies of a training forward."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -24,6 +26,59 @@ def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten(tree):
+    """(leaves, treedef) in ``jax.tree_util``'s order: dict keys sorted,
+    lists and tuples in order, ``None`` a node without leaves; anything
+    else is a leaf. The order the checkpoint format and the optimizer's
+    sums follow, so both packages walk a tree alike."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [tree_flatten(tree[k]) for k in keys]
+        return ([x for leaves, _ in subs for x in leaves],
+                ("dict", keys, [d for _, d in subs]))
+    if isinstance(tree, (list, tuple)):
+        subs = [tree_flatten(t) for t in tree]
+        return ([x for leaves, _ in subs for x in leaves],
+                (type(tree), None, [d for _, d in subs]))
+    if tree is None:
+        return [], ("none", None, [])
+    return [tree], ("leaf", None, [])
+
+
+def tree_unflatten(treedef, leaves):
+    """The tree ``treedef`` describes, with ``leaves`` in flatten order."""
+    it = iter(leaves)
+
+    def build(d):
+        kind, keys, subs = d
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(s) for k, s in zip(keys, subs)}
+        return kind(build(s) for s in subs)
+    return build(treedef)
+
+
+def treedef_str(treedef) -> str:
+    """``treedef`` written as ``str`` of a JAX ``PyTreeDef``, e.g.
+    ``PyTreeDef({'a': *, 'b': [*, None]})``."""
+    def fmt(d):
+        kind, keys, subs = d
+        if kind == "leaf":
+            return "*"
+        if kind == "none":
+            return "None"
+        if kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {fmt(s)}"
+                                   for k, s in zip(keys, subs)) + "}"
+        inner = ", ".join(fmt(s) for s in subs)
+        return f"[{inner}]" if kind is list else \
+            f"({inner}{',' if len(subs) == 1 else ''})"
+    return f"PyTreeDef({fmt(treedef)})"
 
 
 def tree_nbytes(tree) -> int:
@@ -179,3 +234,36 @@ def dense_init(gen: torch.Generator, shape, in_axis=0,
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------- remat
+REMAT = ("none", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):  # noqa: ARG001
+    """Save the outputs of 2-D products and recompute everything else:
+    the counterpart of ``dots_with_no_batch_dims_saveable`` (a product
+    with a batch dim, ``bmm`` and the einsums, is recomputed)."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_call(fn, remat, *args):
+    """``fn(*args)`` (one layer, group or pair) under the reference's remat
+    policy: ``"full"`` recomputes it in the backward
+    (``nothing_saveable``), ``"dots"`` keeps its 2-D products' outputs
+    (``_dots_policy``), ``"none"`` saves what autograd saves. Without grad
+    mode (serving) every policy is the plain call."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r} not in {REMAT}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_dots_context)

@@ -20,8 +20,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp, ssm
-from repro_torch.models.common import (dense_init, dtype_of, rmsnorm,
-                                       stacked, tree_map)
+from repro_torch.models.common import (dense_init, dtype_of, remat_call,
+                                       rmsnorm, stacked, tree_map)
 from repro_torch.models.transformer import Monolithic, layer_slice
 
 
@@ -119,12 +119,24 @@ def _promote_conv(states, dtype):
             states["conv"] = states["conv"].to(want)
 
 
-def forward(params, cfg, batch, cache=None, cache_pos=None):
+def _group(params, cfg, gp, x, gstates, g, positions, ckv, cache_pos):
+    """Group ``g``: its ``shared_attn_every`` mamba layers, then the shared
+    attention block."""
+    per = cfg.shared_attn_every
+    for j in range(per):
+        x = _mamba_layer(layer_slice(gp, j), cfg, x, gstates, g * per + j)
+    return _shared_block(params["shared"], cfg, x, positions, ckv,
+                         cache_pos)
+
+
+def forward(params, cfg, batch, cache=None, cache_pos=None, remat="none"):
     """Returns (logits (B, T, V), cache). batch: {"tokens": (B, T)}; cache
-    (``init_cache``) is written in place."""
+    (``init_cache``) is written in place. ``remat="full"`` recomputes each
+    group (its mamba layers and the shared block) in the backward; as in
+    the reference, the tail is not recomputed and ``"dots"`` is
+    ``"none"``."""
     tokens = batch["tokens"]
     B, T = tokens.shape
-    per = cfg.shared_attn_every
     n_grp, rem = _n_groups(cfg), _n_rem(cfg)
     x = params["embed"][tokens.to(torch.int64)]
     base = cache_pos if cache_pos is not None else 0
@@ -134,15 +146,13 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
     tstates = None if cache is None or not rem else cache["tail"]
     _promote_conv(gstates, x.dtype)
     _promote_conv(tstates, x.dtype)
+    group_remat = "full" if remat == "full" else "none"
     for g in range(n_grp):
-        gp = layer_slice(params["groups"], g)
-        for j in range(per):
-            x = _mamba_layer(layer_slice(gp, j), cfg, x, gstates,
-                             g * per + j)
         ckv = None if cache is None else {"k": cache["kv_k"][g],
                                           "v": cache["kv_v"][g]}
-        x = _shared_block(params["shared"], cfg, x, positions, ckv,
-                          cache_pos)
+        x = remat_call(_group, group_remat, params, cfg,
+                       layer_slice(params["groups"], g), x, gstates, g,
+                       positions, ckv, cache_pos)
     for j in range(rem):
         x = _mamba_layer(layer_slice(params["tail"], j), cfg, x, tstates, j)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import needs_grad
 from repro_torch.models.common import dense_init, rmsnorm
 
 SSD_CHUNK = 256
@@ -55,13 +56,29 @@ def _scalar(v, like):
 # ================================================================= SSD core
 def segsum(x):
     """x: (..., T) -> (..., T, T); out[..., i, j] = sum_{k=j+1..i} x_k for
-    j <= i, -inf above the diagonal. One (..., T, T) buffer, updated in
-    place."""
+    j <= i, -inf above the diagonal. Serving keeps one (..., T, T) buffer,
+    updated in place; where autograd records (``needs_grad``) the same ops
+    run out of place, since the backward needs what the in-place forms
+    would overwrite."""
     T = x.shape[-1]
     ones = torch.ones((T, T), dtype=torch.bool, device=x.device)
     s = torch.where(torch.tril(ones, -1), x[..., :, None], 0.0)
+    if needs_grad(s):
+        return torch.cumsum(s, dim=-2).masked_fill(~torch.tril(ones),
+                                                   float("-inf"))
     s.cumsum_(dim=-2)
     return s.masked_fill_(~torch.tril(ones), float("-inf"))
+
+
+def _exp_mul(s, other=None):
+    """``exp(s) * other`` (or ``exp(s)``): in place on ``s`` when serving,
+    out of place where autograd records (exp's backward reads its
+    output)."""
+    if needs_grad(s, other):
+        e = torch.exp(s)
+        return e if other is None else e * other
+    s.exp_()
+    return s if other is None else s.mul_(other)
 
 
 def ssd(x, a, b, c, chunk=SSD_CHUNK, initial_state=None):
@@ -93,7 +110,7 @@ def ssd(x, a, b, c, chunk=SSD_CHUNK, initial_state=None):
         cc = c.reshape(Bsz, nC, chunk, -1).to(f32)
         s_diag = torch.einsum("bcln,bcsn->bcls", cc, bc)[:, :, None]
 
-    w = segsum(ac).exp_().mul_(s_diag)  # L * s_diag, (B, nC, H, l, s)
+    w = _exp_mul(segsum(ac), s_diag)  # L * s_diag, (B, nC, H, l, s)
     y_diag = torch.einsum("bchls,bcshp->bclhp", w, xc)
     del w
 
@@ -111,7 +128,7 @@ def ssd(x, a, b, c, chunk=SSD_CHUNK, initial_state=None):
                                     dtype=f32, device=x.device)
     states = torch.cat([initial_state[:, None].to(f32), states], dim=1)
     chunk_sums = F.pad(a_cum[..., -1], (0, 0, 1, 0))  # (B, nC+1, H)
-    decay_chunk = segsum(chunk_sums.movedim(-1, 1)).exp_()  # (B,H,z,c)
+    decay_chunk = _exp_mul(segsum(chunk_sums.movedim(-1, 1)))  # (B,H,z,c)
     new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
     prev_states, final_state = new_states[:, :-1], new_states[:, -1]
 

@@ -28,9 +28,9 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp
-from repro_torch.models.common import (dtype_of, dense_init, rmsnorm,
-                                       sinusoidal_positions, stacked,
-                                       tree_map)
+from repro_torch.models.common import (dtype_of, dense_init, remat_call,
+                                       rmsnorm, sinusoidal_positions,
+                                       stacked, tree_map)
 
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -148,14 +148,16 @@ def logits_head(params, cfg, x):
     return x @ params["unembed"]
 
 
-def forward(params, cfg, batch, cache=None, cache_pos=None):
+def forward(params, cfg, batch, cache=None, cache_pos=None, remat="none"):
     """Returns (logits, cache). batch: {"tokens": (B, T) int tensor, or
     (B, T, nq) for the audio family, whose logits are (B, T, nq, V)}, and
     for the vlm family optionally "vision_embeds" (B, nv, d), placed in
     front of the tokens, and "positions" (3, B, T) for M-RoPE (required);
     cache: stacked KV dict, written in place. ``params["layers"]`` is the
     stacked tree, or a list of per-layer trees (an MoE layer's possibly
-    split per expert, ``mlp.split_experts``)."""
+    split per expert, ``mlp.split_experts``). ``remat`` (``"none"``,
+    ``"full"``, ``"dots"``) applies per layer under autograd
+    (``common.remat_call``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -176,7 +178,8 @@ def forward(params, cfg, batch, cache=None, cache_pos=None):
         lp = layers[i] if isinstance(layers, list) else layer_slice(layers, i)
         ckv = None if cache is None else {"k": cache["k"][i],
                                           "v": cache["v"][i]}
-        x = layer_body(lp, cfg, x, positions, ckv, cache_pos)
+        x = remat_call(layer_body, remat, lp, cfg, x, positions, ckv,
+                       cache_pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_head(params, cfg, x), cache
 

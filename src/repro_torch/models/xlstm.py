@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm
-from repro_torch.models.common import dense_init, dtype_of, rmsnorm, stacked
+from repro_torch.models.common import (dense_init, dtype_of, remat_call,
+                                       rmsnorm, stacked)
 from repro_torch.models.transformer import Monolithic, layer_slice
 
 
@@ -58,24 +59,33 @@ def init_cache(cfg, batch, max_seq=None, device=None):  # noqa: ARG001
     }
 
 
-def forward(params, cfg, batch, cache=None, cache_pos=None):  # noqa: ARG001
+def _pair(pp, cfg, x, cache, i):
+    """Pair ``i``: the mLSTM block, then the sLSTM block; returns (x, the
+    new mLSTM state, the new sLSTM states)."""
+    mstate = None if cache is None else cache["m"][i]
+    h, new_m = ssm.mlstm_block(pp["m"], cfg,
+                               rmsnorm(x, pp["m_ln"], cfg.norm_eps), mstate)
+    x = x + h
+    sstate = None if cache is None else \
+        {k: v[i] for k, v in cache["s"].items()}
+    h, new_s = ssm.slstm_block(pp["s"], cfg,
+                               rmsnorm(x, pp["s_ln"], cfg.norm_eps), sstate)
+    return x + h, new_m, new_s
+
+
+def forward(params, cfg, batch, cache=None, cache_pos=None,  # noqa: ARG001
+            remat="none"):
     """Returns (logits (B, T, V), cache). batch: {"tokens": (B, T)}; cache
     (``init_cache``) is written in place. The recurrence needs no
-    position, so ``cache_pos`` is unused."""
+    position, so ``cache_pos`` is unused. ``remat="full"`` recomputes each
+    pair in the backward; as in the reference, ``"dots"`` is
+    ``"none"``."""
     x = params["embed"][batch["tokens"].to(torch.int64)]
+    pair_remat = "full" if remat == "full" else "none"
     for i in range(_n_pairs(cfg)):
-        pp = layer_slice(params["pairs"], i)
-        mstate = None if cache is None else cache["m"][i]
-        h, new_m = ssm.mlstm_block(pp["m"], cfg,
-                                   rmsnorm(x, pp["m_ln"], cfg.norm_eps),
-                                   mstate)
-        x = x + h
-        sstate = None if cache is None else \
-            {k: v[i] for k, v in cache["s"].items()}
-        h, new_s = ssm.slstm_block(pp["s"], cfg,
-                                   rmsnorm(x, pp["s_ln"], cfg.norm_eps),
-                                   sstate)
-        x = x + h
+        x, new_m, new_s = remat_call(_pair, pair_remat,
+                                     layer_slice(params["pairs"], i), cfg,
+                                     x, cache, i)
         if cache is not None:
             cache["m"][i].copy_(new_m)
             for k, v in cache["s"].items():
