@@ -277,7 +277,8 @@ def build_kernels():
     libs = {"K1, K2, K3 f32": sm.LIBRARY,
             "K1, K2, K3 bf16 (mma)": sm.LIBRARY_MMA,
             "K4 (fma)": fa.LIBRARY, "K4 bf16 (mma)": fa.LIBRARY_MMA,
-            "K4 backward (fma)": fa.LIBRARY_BWD}
+            "K4 backward (fma)": fa.LIBRARY_BWD,
+            "K4 backward bf16 (mma)": fa.LIBRARY_BWD_MMA}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.lib(), libs.values()))
@@ -1115,9 +1116,10 @@ BWD_SHAPES = (("qwen2-0.5b", (1, 14, 2, 4096, 4096, 64), True),
 # shape, bf16
 BWD_TIMED = (("qwen2-0.5b train", (4, 14, 2, 4096, 4096, 64), True),
              ("language", LANGUAGE_SHAPE, True))
-# The backward kernel is held, in bf16 and f32, to a limit set by its own
+# The backward kernels are held, in bf16 and f32, to a limit set by their
 # rounding against the plain version's f32 result on the same inputs (q,
-# k, v, the forward's lse, dO) before its cast: the output's
+# k, v, the forward's lse, dO) before its cast. The CUDA-core kernel
+# (f32, and bf16 at unaligned shapes) sums exact products in f32: the output's
 # rounding, 2^-8 |ref| in bf16 (2^-23 in f32: round to nearest is half of
 # that), plus BWD_F32 times the element's absolute sum A (the same sums
 # over |terms|: A_dv = |p|^T |dO|, A_dq = scale |ds'| |k|, A_dk = scale
@@ -1131,9 +1133,27 @@ BWD_TIMED = (("qwen2-0.5b train", (4, 14, 2, 4096, 4096, 64), True),
 # must go above it.
 BWD_F32 = 2.0 ** -16
 BWD_ROUND = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -23}
+# The tensor-core kernel (bf16) also rounds its operands: p to bf16 before
+# dv = p^T dO, and ds to bf16 before dq = scale ds k and dk = scale ds^T q
+# (unit roundoff 2^-8 each, as the plain bf16 attention's autograd rounds
+# them), with every sum and D in f32. An element's error from them is
+# sum_t d_t x_t over its terms x_t (p dO for dv, scale ds k for dq, scale
+# ds q for dk), |d_t| <= 2^-8, independent: roundings of scale 2^-8 R with
+# R = sqrt(sum_t x_t^2), i.e. sqrt(sum_i p^2 dO^2) (dv), scale
+# sqrt(sum_j ds^2 k^2) (dq), scale sqrt(sum_i ds^2 q^2) (dk). Its limit adds
+# BWD_MMA_SCALES times that scale to the one above, as the forward's
+# bf16-p limit does (P_ROUND_SCALES); 8 bounds it outright for up to 64
+# terms, by Cauchy-Schwarz, and is about 14 standard deviations of it
+# beyond. A planted fault drops a 64-key tile (or query block) of terms,
+# about 8 times their typical size, so it still exceeds the limit where
+# R sums a few thousand terms (2^-8 x 8 x sqrt(4096) = 2 terms' size).
+BWD_MMA_SCALES = 8.0
 # the planted faults: (tag, shape, causal)
 BWD_FAULTS = (BWD_SHAPES[0], BWD_SHAPES[2], BWD_SHAPES[5])
-BWD_NAMES = ("::dkdv_kernel<", "::rows_kernel<")
+# the backward's kernels as torch.profiler names them: on the tensor cores
+# (bf16) and on the CUDA cores (f32; the yardstick of the timed shapes)
+BWD_MMA_NAMES = ("::dkdv_mma_kernel<", "::rows_mma_kernel<")
+BWD_FMA_NAMES = ("::dkdv_kernel<", "::rows_kernel<")
 
 
 def flash_bwd_bound(shape, causal, dtype_bytes, flops_peak):
@@ -1150,10 +1170,12 @@ def flash_bwd_bound(shape, causal, dtype_bytes, flops_peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bwd_f32(q, k, v, dout, lse, causal):
+def attention_bwd_f32(q, k, v, dout, lse, causal, with_rss=False):
     """The plain backward (``kernels/ref.py::flash_attention_bwd_ref``) in
     f32 without its final cast, and each gradient's absolute sum A (see
-    ``BWD_F32``): ((dq, dk, dv), (A_dq, A_dk, A_dv))."""
+    ``BWD_F32``): ((dq, dk, dv), (A_dq, A_dk, A_dv)); ``with_rss`` adds
+    the root-sum-square scale R of the terms the tensor-core kernel
+    rounds (see ``BWD_MMA_SCALES``), (R_dq, R_dk, R_dv)."""
     import torch
     from repro_torch.kernels.ref import NEG_INF
     B, H, Tq, hd = q.shape
@@ -1177,6 +1199,16 @@ def attention_bwd_f32(q, k, v, dout, lse, causal):
     ds = p * (ds - delta)
     dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf) * hd ** -0.5
     dk = torch.einsum("bkgts,bkgtd->bksd", ds, qg) * hd ** -0.5
+    rss = None
+    if with_rss:
+        ds.square_()
+        r_dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf.square()).sqrt_() \
+            * hd ** -0.5
+        r_dk = torch.einsum("bkgts,bkgtd->bksd", ds, qg.square()).sqrt_() \
+            * hd ** -0.5
+        r_dv = torch.einsum("bkgts,bkgtd->bksd", p.square(),
+                            dog.square()).sqrt_()
+        rss = (r_dq.reshape(B, H, Tq, hd), r_dk, r_dv)
     del ds
     ds_abs = p * (torch.einsum("bkgtd,bksd->bkgts", dog.abs(), vf.abs())
                   + delta.abs())
@@ -1184,13 +1216,18 @@ def attention_bwd_f32(q, k, v, dout, lse, causal):
     a_dq = torch.einsum("bkgts,bksd->bkgtd", ds_abs, kf.abs()) * hd ** -0.5
     a_dk = torch.einsum("bkgts,bkgtd->bksd", ds_abs, qg.abs()) * hd ** -0.5
     del ds_abs
-    return ((dq.reshape(B, H, Tq, hd), dk, dv),
-            (a_dq.reshape(B, H, Tq, hd), a_dk, a_dv))
+    out = ((dq.reshape(B, H, Tq, hd), dk, dv),
+           (a_dq.reshape(B, H, Tq, hd), a_dk, a_dv))
+    return out + (rss,) if with_rss else out
 
 
-def bwd_excess(out, ref, absum, dtype):
-    """Max over elements of |out - ref| / the backward's rounding limit."""
+def bwd_excess(out, ref, absum, dtype, rss=None):
+    """Max over elements of |out - ref| / the backward's rounding limit:
+    the CUDA-core kernel's, or with ``rss`` (R, ``attention_bwd_f32``) the
+    tensor-core kernel's."""
     lim = BWD_ROUND[dtype] * ref.abs() + BWD_F32 * absum + 1e-30
+    if rss is not None:
+        lim = lim + BWD_MMA_SCALES * BWD_ROUND["bfloat16"] * rss
     return ((out.float() - ref).abs() / lim).max().item()
 
 
@@ -1218,52 +1255,107 @@ def _bwd_inputs(gen, shape, causal, dtype):
 
 def flash_bwd_phase():
     """K4's backward against its plain version on the card: every shape
-    of ``BWD_SHAPES`` in bf16 and f32 within the rounding limit, the
-    planted faults above it, the forward with lse bit-equal to the
-    serving forward, and the times at ``BWD_TIMED``."""
+    of ``BWD_SHAPES`` in bf16 on the tensor-core kernel within its
+    rounding limit (two launches ``torch.equal``) and in f32 on the
+    CUDA-core kernel within its own, unaligned bf16 calls on the CUDA
+    cores, the planted faults above the tensor-core limit, the forward
+    with lse bit-equal to the serving forward, and the times at
+    ``BWD_TIMED`` beside the CUDA-core kernel's on the same inputs."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2025)
     before = fa.flash_attention_backward.launches
+    reset_variants()
+    counts = fa.flash_attention_backward.variant_launches
     checked, faults, timed = [], [], []
     max_err = 0.0
+
+    def check(tag, shape, causal, dtype, inputs, variant):
+        """One backward call through the wrapper: the kernel it took
+        (``variant``), its excess over that kernel's rounding limit, finite
+        grads; returns (excess, max |err|, grads, refs, abss, rss), rss all
+        None for the CUDA-core kernel."""
+        dname = str(dtype).split(".")[-1]
+        n0 = dict(counts)
+        grads = fa.flash_attention_backward(*inputs, causal=causal)
+        if counts[variant] != n0[variant] + 1:
+            raise AssertionError(f"K4 backward {tag} {shape} {dname} did not "
+                                 f"take the {variant} kernel: {counts}")
+        mma = variant == "mma"
+        refs, abss, *rss = attention_bwd_f32(*inputs, causal, with_rss=mma)
+        rss = rss[0] if mma else (None,) * 3
+        x = max(bwd_excess(g, r, a, dname, s)
+                for g, r, a, s in zip(grads, refs, abss, rss))
+        err = max((g.float() - r).abs().max().item()
+                  for g, r in zip(grads, refs))
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"K4 backward {tag} {shape} {dname}: "
+                                 "non-finite gradient")
+        if not x <= 1.0:
+            raise AssertionError(f"K4 backward {tag} {shape} {dname} "
+                                 f"({variant}): {x:.3f}x the rounding limit")
+        return x, err, grads, refs, abss, rss
+
     for tag, shape, causal in BWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
-            q, k, v, dout, lse = _bwd_inputs(gen, shape, causal, dtype)
-            grads = fa.flash_attention_backward(q, k, v, dout, lse,
-                                                causal=causal)
-            refs, abss = attention_bwd_f32(q, k, v, dout, lse, causal)
-            x = max(bwd_excess(g, r, a, dname)
-                    for g, r, a in zip(grads, refs, abss))
-            err = max((g.float() - r).abs().max().item()
-                      for g, r in zip(grads, refs))
-            if not all(bool(torch.isfinite(g).all()) for g in grads):
-                raise AssertionError(f"K4 backward {tag} {shape} {dname}: "
-                                     "non-finite gradient")
-            if not x <= 1.0:
-                raise AssertionError(f"K4 backward {tag} {shape} {dname}: "
-                                     f"{x:.3f}x the rounding limit")
+            variant = "mma" if dtype == torch.bfloat16 else "fma"
+            inputs = _bwd_inputs(gen, shape, causal, dtype)
+            x, err, grads, refs, abss, rss = check(tag, shape, causal, dtype,
+                                                   inputs, variant)
+            entry = {"tag": tag, "shape": list(shape), "causal": causal,
+                     "dtype": dname, "kernel": variant, "max_abs_err": err,
+                     "round_excess": x}
+            msg = ""
+            if variant == "mma":   # no atomics: bits fixed by the launch
+                again = fa.flash_attention_backward(*inputs, causal=causal)
+                entry["relaunch_equal"] = all(
+                    torch.equal(a, b) for a, b in zip(grads, again))
+                if not entry["relaunch_equal"]:
+                    raise AssertionError(f"K4 backward {tag} {shape}: two "
+                                         "launches differ")
+                msg = "; a second launch torch.equal"
+                del again
             max_err = max(max_err, err)
-            checked.append({"tag": tag, "shape": list(shape),
-                            "causal": causal, "dtype": dname,
-                            "max_abs_err": err, "round_excess": x})
-            log(f"K4 backward {tag} {shape} causal={causal} {dname}: "
-                f"{x:.3f}x the rounding limit, max |err| {err:.3e}; "
-                "forward with lse torch.equal to the forward without it")
-            if dtype == torch.bfloat16 and (tag, shape, causal) in \
-                    BWD_FAULTS:
-                faults += bwd_planted_faults(tag, shape, causal, q, k, v,
-                                             dout, lse, refs, abss)
-            del q, k, v, dout, lse, grads, refs, abss
+            checked.append(entry)
+            log(f"K4 backward {tag} {shape} causal={causal} {dname}: kernel "
+                f"{variant}, {x:.3f}x its rounding limit, max |err| "
+                f"{err:.3e}{msg}; forward with lse torch.equal to the "
+                "forward without it")
+            if variant == "mma" and (tag, shape, causal) in BWD_FAULTS:
+                faults += bwd_planted_faults(tag, shape, causal, *inputs,
+                                             refs, abss, rss)
+            del inputs, grads, refs, abss, rss
             free_cuda()
+    # bf16 that the tensor-core kernel does not take: a head dim that is
+    # not a multiple of 8, an output gradient 2 bytes off 16-byte alignment
+    for tag, shape in (("hd 36", (1, 8, 2, 300, 300, 36)),
+                       ("dO offset", (1, 14, 2, 1000, 1000, 64))):
+        q, k, v, dout, lse = _bwd_inputs(gen, shape, True, torch.bfloat16)
+        if tag == "dO offset":
+            flat = torch.empty(dout.numel() + 1, dtype=dout.dtype,
+                               device="cuda")
+            dout = flat[1:].view(dout.shape).copy_(dout)
+        x, err, *_ = check(tag, shape, True, torch.bfloat16,
+                           (q, k, v, dout, lse), "fma")
+        checked.append({"tag": tag, "shape": list(shape), "causal": True,
+                        "dtype": "bfloat16", "kernel": "fma",
+                        "max_abs_err": err, "round_excess": x})
+        log(f"K4 backward {tag} {shape} causal=True bfloat16 (not aligned "
+            f"for the tensor cores): kernel fma, {x:.3f}x its rounding "
+            f"limit, max |err| {err:.3e}")
+        del q, k, v, dout, lse
+        free_cuda()
+    n = len(BWD_SHAPES)
+    want = {"mma": 2 * n + 2 * len(BWD_FAULTS), "fma": n + 2}
     n_calls = fa.flash_attention_backward.launches - before
-    want = len(BWD_SHAPES) * 2 + 2 * len(BWD_FAULTS)
-    if n_calls != want:
-        raise AssertionError(f"K4 backward counted {n_calls} launches, "
-                             f"want {want}")
+    if counts != want or n_calls != sum(want.values()):
+        raise AssertionError(f"K4 backward counted {n_calls} launches by "
+                             f"kernel {counts}, want {want}")
+    log(f"K4 backward by kernel: {counts} (bf16 aligned mma; f32 and "
+        "unaligned bf16 fma)")
     for tag, shape, causal in BWD_TIMED:
         B, H, KV, Tq, Tk, hd = shape
         set_bytes = (3 * B * H * Tq + 2 * B * KV * Tk) * hd * 2
@@ -1273,8 +1365,22 @@ def flash_bwd_phase():
         def kern(q, k, v, dout, lse):
             return fa.flash_attention_backward(q, k, v, dout, lse,
                                                causal=causal)
-        ms = time_ms(kern, sets, iters=6)
-        dev_ms = device_ms(kern, sets, BWD_NAMES, iters=6)
+
+        def fma(q, k, v, dout, lse):
+            # the CUDA-core kernel it replaces, called directly (uncounted)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            fa.run_backward(fa.backward_kernel("fma", torch.bfloat16), q, k,
+                            v, dout, lse, dq, dk, dv, causal=causal)
+        n0 = dict(counts)
+        ms = time_ms(kern, sets, iters=20)
+        dev_ms = device_ms(kern, sets, BWD_MMA_NAMES, iters=20)
+        split = {name.strip(":<"): device_ms(kern, sets, (name,), iters=20)
+                 for name in BWD_MMA_NAMES}
+        if counts["fma"] != n0["fma"] or counts["mma"] == n0["mma"]:
+            raise AssertionError(f"K4 backward {tag}: timed calls took "
+                                 f"{counts}, not the mma kernel alone")
+        fma_ms = time_ms(fma, sets, iters=6)
+        fma_dev_ms = device_ms(fma, sets, BWD_FMA_NAMES, iters=6)
         plain_ms = time_ms(lambda q, k, v, dout, lse:
                            flash_attention_bwd_ref(q, k, v, dout, lse,
                                                    causal=causal),
@@ -1288,28 +1394,35 @@ def flash_bwd_phase():
                                                  enable_gqa=True)
             lib.append((out, leaves, dout))
         lib_ms = time_ms(lambda out, leaves, dout: torch.autograd.grad(
-            out, leaves, dout, retain_graph=True), lib, iters=6)
+            out, leaves, dout, retain_graph=True), lib, iters=20)
         b_ms, b_by = flash_bwd_bound(shape, causal, 2, PEAK_BF16_FLOPS)
         timed.append({"tag": tag, "shape": list(shape), "causal": causal,
-                      "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+                      "dtype": "bfloat16", "kernel": "mma", "ms": ms,
+                      "device_ms": dev_ms, "device_ms_by_kernel": split,
+                      "fma_ms": fma_ms, "fma_device_ms": fma_dev_ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "max_abs_err": max_err})
-        log(f"K4 backward {tag} {shape} causal={causal} bf16: kernel "
-            f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} "
-            f"ms, scaled_dot_product_attention's backward {lib_ms:.4f} ms, "
+        log(f"K4 backward {tag} {shape} causal={causal} bf16: kernel mma "
+            f"{ms:.4f} ms (device {fmt_ms(dev_ms)}: "
+            + ", ".join(f"{k} {fmt_ms(v)}" for k, v in split.items())
+            + f"), the CUDA-core kernel it replaces {fma_ms:.4f} ms (device "
+            f"{fmt_ms(fma_dev_ms)}), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention's backward {lib_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
         del sets, lib
         free_cuda()
     return {"max_abs_err": max_err, "checked": checked,
             "planted_faults": faults, "shapes": timed,
+            "variant_launches": dict(counts),
             "check_launches": fa.flash_attention_backward.launches - before}
 
 
-def bwd_planted_faults(tag, shape, causal, q, k, v, dout, lse, refs, abss):
-    """The kernel without its last key tile (dq) and without its last
-    query block (dk, dv), against the unfaulted plain gradients: each must
-    exceed the rounding limit."""
+def bwd_planted_faults(tag, shape, causal, q, k, v, dout, lse, refs, abss,
+                       rss):
+    """The tensor-core kernel without its last key tile (dq) and without
+    its last query block (dk, dv), against the unfaulted plain gradients:
+    each must exceed its rounding limit."""
     from repro_torch.kernels import flash_attention as fa
     Tq, Tk = shape[3], shape[4]
     drop_k = Tk - (Tk - 1) // 64 * 64
@@ -1317,19 +1430,20 @@ def bwd_planted_faults(tag, shape, causal, q, k, v, dout, lse, refs, abss):
     out = []
     dq, _, _ = fa.flash_attention_backward(
         q, k[:, :, :-drop_k], v[:, :, :-drop_k], dout, lse, causal=causal)
-    x = bwd_excess(dq, refs[0], abss[0], "bfloat16")
+    x = bwd_excess(dq, refs[0], abss[0], "bfloat16", rss[0])
     out.append({"tag": tag, "fault": f"dq without its last {drop_k} keys",
                 "round_excess": x})
     _, dk, dv = fa.flash_attention_backward(
         q[:, :, :-drop_q], k, v, dout[:, :, :-drop_q],
         lse[:, :, :-drop_q].contiguous(), causal=causal)
-    x2 = max(bwd_excess(dk, refs[1], abss[1], "bfloat16"),
-             bwd_excess(dv, refs[2], abss[2], "bfloat16"))
+    x2 = max(bwd_excess(dk, refs[1], abss[1], "bfloat16", rss[1]),
+             bwd_excess(dv, refs[2], abss[2], "bfloat16", rss[2]))
     out.append({"tag": tag, "fault": f"dk, dv without the last {drop_q} "
                 "query rows", "round_excess": x2})
     for f in out:
         log(f"K4 backward planted fault, {tag} {shape}, {f['fault']}: "
-            f"{f['round_excess']:.3f}x the rounding limit (must be > 1)")
+            f"{f['round_excess']:.3f}x the tensor-core rounding limit (must "
+            "be > 1)")
         if not f["round_excess"] > 1.0:
             raise AssertionError(f"K4 backward rounding limit has no teeth: "
                                  f"{tag} {f['fault']} passes")
@@ -4440,11 +4554,15 @@ def _finite(tree, tag):
 
 
 def _want_attention(counts, variants, n_fwd, n_bwd, variant, tag):
+    """K4 forward ``n_fwd`` and backward ``n_bwd`` launches, all on the
+    kernel ``variant``, and no other kernel's."""
     want = {name: 0 for name in counts}
     want.update({"K4": n_fwd, "K4bwd": n_bwd})
-    if counts != want or variants["K4"][variant] != n_fwd:
+    if counts != want or variants["K4"][variant] != n_fwd \
+            or variants["K4bwd"][variant] != n_bwd:
         raise AssertionError(f"{tag}: launches {counts} by kernel "
-                             f"{variants}, want {want}, forward {variant}")
+                             f"{variants}, want {want}, forward and "
+                             f"backward {variant}")
 
 
 def train_headline():
@@ -4486,14 +4604,14 @@ def train_headline():
     first = [m["loss"] for m in log_[restored:TRAIN_FAULT]]
     again = [m["loss"] for m in log_[TRAIN_FAULT:2 * TRAIN_FAULT - restored]]
     replay_gap = max(abs(a - b) / abs(a) for a, b in zip(first, again))
-    if not replay_gap <= 1e-3:
+    if not replay_gap <= 1e-3 or again != first:
         raise AssertionError(f"replayed steps' losses {again} != {first}")
     traj = [m["loss"] for m in log_[:restored] + log_[TRAIN_FAULT:]]
     if not all(map(math.isfinite, traj)) or \
             not statistics.mean(traj[-3:]) < traj[0]:
         raise AssertionError(f"train losses {traj}: not finite and falling")
     # K4 on every layer: forward twice a step (remat's recompute), backward
-    # once, all on the tensor cores
+    # once, all on the tensor cores (both directions)
     _want_attention(counts, variants, 2 * calls * cfg.n_layers,
                     calls * cfg.n_layers, "mma", "train headline")
     if peak > bound:
@@ -4510,7 +4628,8 @@ def train_headline():
     log(f"train {TRAIN_ARCH}: K4 launches forward {counts['K4']} == 2 x "
         f"{calls} step passes x {cfg.n_layers} layers (remat recomputes "
         f"each), backward {counts['K4bwd']} == {calls} x {cfg.n_layers}, "
-        f"by kernel {variants['K4']}; step {step_s:.4f} s (median after the "
+        f"by kernel {variants['K4']} forward, {variants['K4bwd']} backward; "
+        f"step {step_s:.4f} s (median after the "
         f"first), {tok_s:.1f} train tokens/s; peak {peak} B <= bound "
         f"{bound} B ({n_params} params x 14 B + remat's saved inputs + "
         f"the loss's {LOSS_BYTES_PER_LOGIT} B a logit); wall {wall:.1f} s "
@@ -4526,7 +4645,8 @@ def train_headline():
                     "n_params": n_params, "wall_s": wall,
                     "k4_launches": counts["K4"],
                     "k4_bwd_launches": counts["K4bwd"],
-                    "k4_variants": variants["K4"]}
+                    "k4_variants": variants["K4"],
+                    "k4_bwd_variants": variants["K4bwd"]}
 
 
 def check_against_plain(cfg, params, batch, gk, tag):
@@ -4546,7 +4666,8 @@ def check_against_plain(cfg, params, batch, gk, tag):
         cfg.replace(dtype="float32"), p32, batch)
     del p32
     if counts32["K4"] != counts32["K4bwd"] or \
-            variants32["K4"]["fma"] != counts32["K4"]:
+            variants32["K4"]["fma"] != counts32["K4"] or \
+            variants32["K4bwd"]["fma"] != counts32["K4bwd"]:
         raise AssertionError(f"{tag} f32: launches {counts32} "
                              f"{variants32}")
     gaps_k, gaps_p = _leaf_gaps(gk, g32), _leaf_gaps(gp, g32)
@@ -4674,7 +4795,10 @@ def train_microbatch(params):
 
 
 # kernel-name groups of a training step's device time (torch.profiler)
-STEP_GROUPS = (("K4 backward", ("::dkdv_kernel<", "::rows_kernel<")),
+STEP_GROUPS = (("K4 backward dk, dv", ("::dkdv_mma_kernel<",
+                                         "::dkdv_kernel<")),
+               ("K4 backward rows (D, dq)", ("::rows_mma_kernel<",
+                                             "::rows_kernel<")),
                ("K4 forward", (FLASH_MMA, FLASH_FMA)),
                ("cuBLAS products", ("gemm", "Gemm", "sm90_xmma", "cutlass",
                                     "nvjet")))
@@ -4779,7 +4903,8 @@ def train_families():
                 if cfg.family == "hybrid" else \
                 (0 if cfg.family == "ssm" else cfg.n_layers)
         if counts["K4"] != n_k4 or counts["K4bwd"] != n_k4 \
-                or variants["K4"]["mma"] != n_k4 or counts["K2"] \
+                or variants["K4"]["mma"] != n_k4 \
+                or variants["K4bwd"]["mma"] != n_k4 or counts["K2"] \
                 or counts["K3"]:
             raise AssertionError(f"train {arch}: launches {counts} "
                                  f"{variants}, want K4 {n_k4} and back")
@@ -4894,8 +5019,9 @@ def kernel_designs():
         + source_design("flash_attention_mma") + " f32 (and bf16 at "
         "unaligned shapes): the CUDA-core FMA kernel of "
         "flash_attention.cu",
-        "flash_attention_backward": "bf16 and f32 (training at T > "
-        "2048): " + source_design("flash_attention_bwd")}
+        "flash_attention_backward": "bf16 (training at T > 2048): "
+        + source_design("flash_attention_bwd_mma") + " f32 (and bf16 at "
+        "unaligned shapes): " + source_design("flash_attention_bwd")}
 
 
 def kernel_entry(name, replaces, launches, max_err, shapes, headline,
@@ -5040,7 +5166,7 @@ def main() -> int:
         kernel_entry("flash_attention_backward", "flash_attention.py:104",
                      sum(training["k4_bwd_by_path"].values()),
                      bkern["max_abs_err"], bkern["shapes"],
-                     bkern["shapes"][0], source="flash_attention_bwd")]
+                     bkern["shapes"][0], source="flash_attention_bwd_mma")]
     kernels[0].update({"launches_by_path": {
                            "qwen2-0.5b": main["launches"],
                            MOE_ARCH: moe["launches"],
@@ -5078,6 +5204,7 @@ def main() -> int:
                      "differentiates its jnp attend_flash by autodiff",
         "launches_by_path": training["k4_bwd_by_path"],
         "checked_shapes": bkern["checked"],
+        "check_launches_by_variant": bkern["variant_launches"],
         "planted_faults": bkern["planted_faults"]})
     kernels[-2].update({
         "launches_by_path": {

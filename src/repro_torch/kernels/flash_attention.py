@@ -31,13 +31,16 @@ grad), ``flash_attention`` and ``ops.flash_attention_bthd`` run through
 ``FlashAttention``, a ``torch.autograd.Function``: its forward is the same
 kernel asked for its f32 row logsumexp as well (``lse``, (B, H, Tq); the
 output's bits and the launch count are those of the call without it), and
-its backward is ``flash_attention_backward``: on a CUDA tensor the
-hand-written kernels of ``csrc/flash_attention_bwd.cu`` (three passes, f32
-sums on the CUDA cores, no atomics; the backward reads q, k, v, the output
-gradient and lse, not the output; ``flash_attention_backward.launches``
-counts one a call), on a CPU tensor the plain
+its backward is ``flash_attention_backward``: on a CUDA tensor one of two
+hand-written backward kernels, chosen by ``kernel_variant`` as the forward
+is (the backward reads q, k, v, the output gradient and lse, not the
+output; no atomics, so its bits do not depend on the launch): ``"mma"``,
+``csrc/flash_attention_bwd_mma.cu`` (bf16 on the tensor cores, p and ds
+rounded to bf16 as the products' operands, f32 sums), and ``"fma"``,
+``csrc/flash_attention_bwd.cu`` (f32 sums of exact products on the CUDA
+cores: f32, and bf16 at any other shape); on a CPU tensor the plain
 ``kernels/ref.py::flash_attention_bwd_ref``. Under no grad (serving) the
-wrappers take the kernel alone, as before.
+wrappers take the forward kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -73,6 +76,9 @@ LIBRARY_BWD = CudaLibrary(
     _CSRC / "flash_attention_bwd.cu",
     {"k4_flash_attention_bwd_bf16": _K4_BWD_ARGS,
      "k4_flash_attention_bwd_f32": _K4_BWD_ARGS})
+LIBRARY_BWD_MMA = CudaLibrary(
+    _CSRC / "flash_attention_bwd_mma.cu",
+    {"k4_flash_attention_bwd_bf16_mma": _K4_BWD_ARGS})
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _INT_MAX = 2 ** 31 - 1
 _GRID_Y_MAX = 65535
@@ -110,13 +116,14 @@ def check_inputs(q, k, v, block_q, block_k):
     return B, H, KV, Tq, Tk, hd
 
 
-def kernel_variant(q, k, v, out) -> str:
+def kernel_variant(q, *others) -> str:
     """``"mma"`` where the tensor-core kernel takes the call: bf16, a head
     dim that is a multiple of 8, every (batch, head, position) stride of
-    q, k, v and out a multiple of 8 elements and 16-byte aligned data
+    q and ``others`` (the forward: k, v, out; the backward: k, v, dout,
+    dq, dk, dv) a multiple of 8 elements and 16-byte aligned data
     pointers, so that every row moves as 16-byte copies. Else ``"fma"``,
     the CUDA-core kernel. A pure function of these properties."""
-    ts = (q, k, v, out)
+    ts = (q, *others)
     if q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 \
             and all(s % 8 == 0 for t in ts for s in t.stride()[:3]) \
             and all(t.data_ptr() % 16 == 0 for t in ts):
@@ -190,12 +197,47 @@ def _heads(t, bthd):
     return t.transpose(1, 2) if bthd else t
 
 
+def _stream(device) -> int:
+    """The current stream's cudaStream_t on ``device``."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def backward_kernel(variant, dtype):
+    """The C entry point of the backward kernel ``variant`` (``"mma"``:
+    bf16 only; ``"fma"``) for ``dtype``; builds its library at first
+    use."""
+    if variant == "mma":
+        return LIBRARY_BWD_MMA.lib().k4_flash_attention_bwd_bf16_mma
+    return getattr(LIBRARY_BWD.lib(),
+                   f"k4_flash_attention_bwd_{_SUFFIX[dtype]}")
+
+
+def run_backward(fn, q, k, v, dout, lse, dq, dk, dv, *, causal):
+    """Launch the backward entry point ``fn`` (``backward_kernel``) on the
+    current stream for inputs ``launch_backward`` has checked, without
+    counting it; raises if the launch fails."""
+    B, H, Tq, hd = q.shape
+    KV, Tk = k.shape[1], k.shape[2]
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    strides = _BWD_STRIDES(*(s for t in (q, k, v, dout, dq, dk, dv)
+                             for s in t.stride()[:3]))
+    rc = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk, dv)),
+            B, H, KV, Tq, Tk, hd, strides, int(bool(causal)), hd ** -0.5,
+            _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"cudaError {rc} at q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}")
+
+
 def launch_backward(q, k, v, dout, lse, dq, dk, dv, *, causal):
     """K4's backward on the current stream: the gradients of
     ``flash_attention(q, k, v)`` for the output gradient ``dout``, given
     the forward's row logsumexp ``lse``, written into ``dq``, ``dk``,
     ``dv`` (the inputs' shapes and dtype, any strides with a contiguous
-    head dim); counts one launch (its three kernels)."""
+    head dim) by the kernel ``kernel_variant`` picks; counts one launch
+    (its two or three kernels)."""
     B, H, KV, Tq, Tk, hd = check_inputs(q, k, v, 1, 1)
     ts = (dout, dq, dk, dv)
     like = (q, q, k, v)
@@ -211,23 +253,11 @@ def launch_backward(q, k, v, dout, lse, dq, dk, dv, *, causal):
         for t in (dq, dk, dv):
             t.zero_()
         return
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    strides = _BWD_STRIDES(*(s for t in (q, k, v, dout, dq, dk, dv)
-                             for s in t.stride()[:3]))
-    fn = getattr(LIBRARY_BWD.lib(),
-                 f"k4_flash_attention_bwd_{_SUFFIX[q.dtype]}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (q, k, v, dout, lse, delta, dq, dk,
-                                          dv)),
-                B, H, KV, Tq, Tk, hd, strides, int(bool(causal)), hd ** -0.5,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"cudaError {rc} at q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}")
+    variant = kernel_variant(q, k, v, *ts)
+    run_backward(backward_kernel(variant, q.dtype), q, k, v, dout, lse, dq,
+                 dk, dv, causal=causal)
     flash_attention_backward.launches += 1
-    flash_attention_backward.variant_launches["fma"] += 1
+    flash_attention_backward.variant_launches[variant] += 1
 
 
 def flash_attention_backward(q, k, v, dout, lse, *, causal, bthd=False):
@@ -235,9 +265,9 @@ def flash_attention_backward(q, k, v, dout, lse, *, causal, bthd=False):
     gradient ``dout``, given the forward's f32 row logsumexp ``lse``
     (B, H, Tq); in the inputs' layout ((B, H, T, hd), or (B, T, H, hd) with
     ``bthd``) and dtype. CPU tensors take ``flash_attention_bwd_ref``; CUDA
-    tensors launch the backward kernel (or raise). Launch count:
-    ``flash_attention_backward.launches`` (and ``variant_launches``: all
-    ``"fma"``, the CUDA cores)."""
+    tensors launch the backward kernel ``kernel_variant`` picks (or raise).
+    Launch count: ``flash_attention_backward.launches``, and per kernel
+    ``flash_attention_backward.variant_launches``."""
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     views = [_heads(t, bthd) for t in (q, k, v, dout)]
@@ -252,7 +282,7 @@ def flash_attention_backward(q, k, v, dout, lse, *, causal, bthd=False):
 
 
 flash_attention_backward.launches = 0
-flash_attention_backward.variant_launches = {"fma": 0}
+flash_attention_backward.variant_launches = {"mma": 0, "fma": 0}
 
 
 class FlashAttention(torch.autograd.Function):
