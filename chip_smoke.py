@@ -213,7 +213,22 @@ Phases (each raises on failure; the last line is printed only if all pass):
    layers), qwen2-vl-7b (4 of 28 layers, 1024 vision embeddings, 3072
    text tokens, ``loss_mask``) and qwen30b-a3b (2 of 48 layers, T = 512,
    K1's launches counted), grads finite, zamba2 and qwen2-vl-7b against
-   the plain attention as in (b).
+   the plain attention as in (b);
+18. counts (``repro_torch.launch.counting``): (a) phase 17's train step
+   (qwen2-0.5b, B = 4, T = 4096, remat full, K4 forward and backward on
+   every layer), (b) prefill_32k's length at batch 1 through the
+   cache-less forward (K4 on every layer) and decode_32k's cache at the
+   largest batch up to 128 whose counted peak fits 60 GB, each counted on
+   fake tensors and on the card: flops and bytes equal as integers, the
+   K4 and K4-backward units equal to the wrappers' launches, the card's
+   temporary bytes (``max_memory_allocated`` less what was allocated
+   before) within the limit of the count (``CUBLAS_WORKSPACE``), and a
+   planted fault (the largest storage alive at the counted peak dropped)
+   outside it; (c) each step's median time and achieved TFLOP/s as a
+   share of the bf16 peak (not gated); (d) the fake-tensor records of
+   qwen2-0.5b's three cells and xlstm-125m's four through
+   ``python -m repro_torch.launch.dryrun``, each process under a wall
+   guard, run beside (a)-(c).
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -234,11 +249,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data sheet: dense bf16 tensor
-# rate, f32 rate outside the tensor cores, HBM3 bandwidth.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BPS = 3.35e12
+# the H100's peak rates and each kernel's bound: repro_torch.launch.counting
 L2_BYTES = 50 * 2 ** 20
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),   # bf16 output rounding
        "float32": dict(rtol=1e-4, atol=5e-4)}    # f32 sum order only
@@ -366,17 +377,16 @@ def device_ms(fn, args_list, names, iters=None):
     return us / iters / 1e3 if us > 0 else None
 
 
-def bound(M, K, N, dtype_bytes, flops_peak, w_bytes=None):
-    """Least ms for (M,K)@(K,N): each input byte read once and the output
-    written once over the HBM rate, or 2MNK over ``flops_peak``. ``w_bytes``
-    replaces the weight's K*N*dtype_bytes (quantised codes, scales and
-    zeros)."""
-    if w_bytes is None:
-        w_bytes = K * N * dtype_bytes
-    byts = (M * K + M * N) * dtype_bytes + w_bytes
-    t_bytes = byts / PEAK_HBM_BPS * 1e3
-    t_ops = 2.0 * M * N * K / flops_peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(M, K, N, dtype_bytes, w_bytes=None):
+    """Least ms for (M,K)@(K,N) in bf16 and what sets it: the hand count of
+    K1-K3 in ``repro_torch.launch.counting`` (``matmul_work``: 2MNK, and x,
+    the weight and y moved once; ``w_bytes`` replaces the weight's
+    K*N*dtype_bytes for quantised codes, scales and zeros) over the H100's
+    rates (``bound_ms``)."""
+    from repro_torch.launch import counting
+    return counting.bound_ms(
+        counting.matmul_work(M, K, N, dtype_bytes, w_bytes),
+        counting.PEAK_BF16_FLOPS)
 
 
 def fmt_ms(ms):
@@ -455,7 +465,7 @@ def kernel_phase():
             dev_ms = device_ms(streamed_matmul, args, (MM_MMA,))
             plain_ms = time_ms(kref.streamed_matmul_ref, args)
             lib_ms = time_ms(torch.matmul, args)
-            b_ms, b_by = bound(M, K, N, 2, PEAK_BF16_FLOPS)
+            b_ms, b_by = bound(M, K, N, 2)
             shapes.append({"M": M, "K": K, "N": N, "dtype": "bfloat16",
                            "max_abs_err": e, "ms": ms, "device_ms": dev_ms,
                            "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -711,8 +721,7 @@ def quant_kernel_phase():
                 dev_ms = device_ms(kern[mode], args, (MM_MMA,))
                 plain_ms = time_ms(plain[mode], args)
                 ctx_ms = time_ms(torch.matmul, [(x, d) for d in wds])
-                b_ms, b_by = bound(M, K, N, 2, PEAK_BF16_FLOPS,
-                                   w_bytes=w_bytes)
+                b_ms, b_by = bound(M, K, N, 2, w_bytes=w_bytes)
                 out[mode]["shapes"].append(
                     {"M": M, "K": K, "N": N, "dtype": "bfloat16",
                      "w_bytes": w_bytes, "max_abs_err": e,
@@ -833,24 +842,14 @@ VISION_Q_CHUNK = 663        # the reference's Q-chunk at N = 4641
 KNOB_TOL = 2e-5             # tests/test_kernels.py::test_flash_q_chunk_knob
 
 
-def _pairs(Tq, Tk, causal):
-    """Visible (query, key) pairs: min(i + 1, Tk) for row i when causal."""
-    if causal:
-        n = min(Tq, Tk)
-        return n * (n + 1) // 2 + max(Tq - Tk, 0) * Tk
-    return Tq * Tk
-
-
-def flash_bound(shape, causal, dtype_bytes, flops_peak):
-    """Least ms for one attention call: q, k, v read once and o written
-    once over the HBM rate, or 4 * hd operations per visible (query, key)
-    pair (two products) over ``flops_peak``; causal counts the pairs this
-    shape's mask leaves, min(i + 1, Tk) for row i."""
-    B, H, KV, Tq, Tk, hd = shape
-    t_ops = 4.0 * B * H * hd * _pairs(Tq, Tk, causal) / flops_peak * 1e3
-    byts = (2 * B * H * Tq + 2 * B * KV * Tk) * hd * dtype_bytes
-    t_bytes = byts / PEAK_HBM_BPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def flash_bound(shape, causal, dtype_bytes):
+    """Least ms for one bf16 attention call: ``counting.flash_work`` (q, k,
+    v read once and o written once, or 4 * hd operations per visible
+    (query, key) pair, the causal pairs counted exactly) over the H100's
+    rates."""
+    from repro_torch.launch import counting
+    return counting.bound_ms(counting.flash_work(shape, causal, dtype_bytes),
+                             counting.PEAK_BF16_FLOPS)
 
 
 # K4 in bf16 on the tensor cores is also held to a limit set by its own
@@ -1018,7 +1017,7 @@ def flash_kernel_phase():
             q, k, v, causal=causal), sets, iters=10)
         lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True), sets, iters=10)
-        b_ms, b_by = flash_bound(shape, causal, 2, PEAK_BF16_FLOPS)
+        b_ms, b_by = flash_bound(shape, causal, 2)
         shapes.append({"tag": tag, "shape": list(shape), "causal": causal,
                        "block_q": bq, "block_k": bk, "dtype": "bfloat16",
                        "max_abs_err": e, "p_round_excess": x, "ms": ms,
@@ -1156,18 +1155,14 @@ BWD_MMA_NAMES = ("::dkdv_mma_kernel<", "::rows_mma_kernel<")
 BWD_FMA_NAMES = ("::dkdv_kernel<", "::rows_kernel<")
 
 
-def flash_bwd_bound(shape, causal, dtype_bytes, flops_peak):
-    """Least ms for K4's backward: 2.5x the forward's operations (five
-    products of 2 hd per visible pair: S and dP, dv, dk, dq) over
-    ``flops_peak``, or q, k, v, dO, lse read once and dq, dk, dv written
-    once over the HBM rate."""
-    B, H, KV, Tq, Tk, hd = shape
-    t_ops = 2.5 * 4.0 * B * H * hd * _pairs(Tq, Tk, causal) \
-        / flops_peak * 1e3
-    byts = ((3 * B * H * Tq + 4 * B * KV * Tk) * hd * dtype_bytes
-            + B * H * Tq * 4)
-    t_bytes = byts / PEAK_HBM_BPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def flash_bwd_bound(shape, causal, dtype_bytes):
+    """Least ms for K4's backward in bf16: ``counting.flash_bwd_work`` (2.5x
+    the forward's operations, or q, k, v, dO, lse read once and dq, dk, dv
+    written once) over the H100's rates."""
+    from repro_torch.launch import counting
+    return counting.bound_ms(
+        counting.flash_bwd_work(shape, causal, dtype_bytes),
+        counting.PEAK_BF16_FLOPS)
 
 
 def attention_bwd_f32(q, k, v, dout, lse, causal, with_rss=False):
@@ -1395,7 +1390,7 @@ def flash_bwd_phase():
             lib.append((out, leaves, dout))
         lib_ms = time_ms(lambda out, leaves, dout: torch.autograd.grad(
             out, leaves, dout, retain_graph=True), lib, iters=20)
-        b_ms, b_by = flash_bwd_bound(shape, causal, 2, PEAK_BF16_FLOPS)
+        b_ms, b_by = flash_bwd_bound(shape, causal, 2)
         timed.append({"tag": tag, "shape": list(shape), "causal": causal,
                       "dtype": "bfloat16", "kernel": "mma", "ms": ms,
                       "device_ms": dev_ms, "device_ms_by_kernel": split,
@@ -4982,6 +4977,246 @@ def training_path():
 
 
 
+# ------------------------------------------------------------ phase 18: counts
+# the counted steps: phase 17's train step, prefill_32k's length at batch 1
+# through the cache-less forward (K4 on every layer; the cached prefill
+# step holds (B, KV, G, T, S) f32 scores, 60 GB a sequence at 32768
+# tokens), and decode_32k's cache at the largest batch of at most 128 whose
+# counted peak fits DECODE_FIT_BYTES
+COUNT_ARCH = "qwen2-0.5b"
+COUNT_PREFILL_T = 32768
+COUNT_DECODE_S, COUNT_DECODE_B = 32768, 128
+DECODE_FIT_BYTES = 60e9
+COUNT_TIMED = 3              # timed runs per step, the median kept
+# What the count cannot see of max_memory_allocated: the caching
+# allocator rounds each allocation up to 512 B and may hand out a block it
+# does not split whole (up to 511 B more in the small pool, 1 MiB in the
+# large), which the count bounds storage by storage (``peak_upper_bytes``:
+# 1023 B for a storage of at most 1 MiB, 1 MiB + 511 B above); and cuBLAS
+# takes a 32 MiB workspace per thread from the allocator the first time a
+# thread calls it (the step's thread, and autograd's device thread in a
+# backward). The limit: counted temp <= card temp <= counted upper temp +
+# 32 MiB x those threads.
+CUBLAS_WORKSPACE = 32 * 2 ** 20
+# phase 18 (d): the published cells counted on fake tensors on this host
+COUNT_CELLS = ((COUNT_ARCH, "train_4k"), (COUNT_ARCH, "prefill_32k"),
+               (COUNT_ARCH, "decode_32k"), ("xlstm-125m", "train_4k"),
+               ("xlstm-125m", "prefill_32k"), ("xlstm-125m", "decode_32k"),
+               ("xlstm-125m", "long_500k"))
+COUNT_CELL_WALL_S = 75.0
+
+
+def start_cell_counts():
+    """Phase 18 (d): each of ``COUNT_CELLS`` counted by
+    ``python -m repro_torch.launch.dryrun`` in a process of its own, all
+    started together; ``finish_cell_counts`` reads them."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape in COUNT_CELLS:
+        procs.append(((arch, shape), time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_cell_counts(procs):
+    """Each cell's record, or why it has none: a cell past
+    ``COUNT_CELL_WALL_S`` from its start is stopped (the wall guard)."""
+    from repro_torch.launch.dryrun import RESULTS_DIR
+    out = {}
+    for (arch, shape), t0, p in procs:
+        tag = f"{arch} {shape}"
+        try:
+            if p.poll() is None:
+                p.wait(timeout=max(
+                    0.0, COUNT_CELL_WALL_S - (time.perf_counter() - t0)))
+            _, err = p.communicate()
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            out[tag] = {"cut_by_wall_guard_s": COUNT_CELL_WALL_S}
+            log(f"count {tag}: not counted, cut by the wall guard at "
+                f"{COUNT_CELL_WALL_S} s")
+            continue
+        if p.returncode != 0:
+            raise AssertionError(f"count {tag} failed: {err[-2000:]}")
+        rec = json.loads((RESULTS_DIR / f"{arch}__{shape}.json").read_text())
+        out[tag] = rec
+        mem = rec["memory"]
+        log(f"count {tag} ({rec['device']}, fake {rec['fake']}): flops "
+            f"{rec['flops_per_chip']} (model "
+            f"{rec['model_flops_per_chip']:.6e}), bytes "
+            f"{rec['bytes_per_chip']}, arguments {mem['argument_bytes']} B, "
+            f"per-card peak {mem['per_chip_peak_bytes']} B (fits one card: "
+            f"{rec['fits_card']}), kernels {rec['kernels']}, counted in "
+            f"{rec['count_seconds']:.1f} s")
+    return out
+
+
+def _real_args(args, gen):
+    """Real tensors on the card for a tree of specs: small normal floats
+    and token ids under 1000 (a count does not depend on the values)."""
+    import torch
+    from repro_torch.models.common import tree_map
+
+    def one(t):
+        if t.dtype in (torch.int32, torch.int64):
+            return torch.randint(0, 1000, t.shape, generator=gen,
+                                 device="cuda", dtype=t.dtype)
+        return torch.randn(t.shape, generator=gen, device="cuda",
+                           dtype=t.dtype).mul_(0.02)
+    return tree_map(one, args) if isinstance(args, dict) else one(args)
+
+
+def counted_step(tag, step, fake_args, call_of):
+    """Phase 18 (a), (b): ``step`` counted on fake tensors and on real ones
+    on the card. Gates: flops and bytes equal as integers, each K4 and
+    K4-backward unit one launch of its wrapper, the card's temp bytes
+    within the limit of the counted ones (see ``CUBLAS_WORKSPACE``), and
+    the count with the largest storage alive at its peak dropped (a
+    planted fault: a saved activation the tracker missed) outside it.
+    Then the step's median time over ``COUNT_TIMED`` runs and the achieved
+    TFLOP/s (not gated). ``call_of(args)``: the step's call arguments."""
+    import statistics
+    import torch
+    from repro_torch.launch import counting
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    with counting.count_step(*fake_args) as fake:
+        fake.outputs(step(*call_of(fake_args)))
+    fake_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    args = tuple(_real_args(a, gen) for a in fake_args)
+    if isinstance(args[1], dict) and "m" in args[1]:    # fresh AdamW state
+        for k in ("m", "v"):
+            for t in tree_leaves(args[1][k]):
+                t.zero_()
+        args[1]["step"].zero_()
+    free_cuda()
+    reset_launches()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    threads = 2 if fake.kernels.get("K4bwd") else 1
+    with counting.count_step(*args) as real:
+        out = real.outputs(step(*call_of(args)))
+        del out
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    launches = read_launches()
+    for key in ("flops", "bytes_accessed"):
+        if getattr(real, key) != getattr(fake, key):
+            raise AssertionError(f"{tag}: {key} on the card "
+                                 f"{getattr(real, key)} != fake "
+                                 f"{getattr(fake, key)}")
+    for unit in ("K4", "K4bwd"):
+        units = fake.kernels.get(unit, {}).get("units", 0)
+        if units != launches[unit] or real.kernels.get(unit, {}).get(
+                "units", 0) != units:
+            raise AssertionError(f"{tag}: {unit} units {units} against "
+                                 f"{launches[unit]} launches")
+    pred = fake.peak_live_bytes - fake.argument_bytes
+    upper = fake.peak_upper_bytes - fake.argument_bytes \
+        + threads * CUBLAS_WORKSPACE
+    if not pred <= card <= upper:
+        raise AssertionError(f"{tag}: the card's temp bytes {card} outside "
+                             f"[{pred}, {upper}] of the count")
+    drop, drop_tag = fake.peak_largest
+    if pred - drop <= card <= upper - drop - (2 ** 20 + 511):
+        raise AssertionError(f"{tag}: planted fault (the {drop} B of "
+                             f"{drop_tag} dropped) within the limit")
+    times = []
+    for _ in range(COUNT_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step(*call_of(args))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        del out
+    step_s = statistics.median(times)
+    tflops = fake.flops / step_s / 1e12
+    share = fake.flops / step_s / counting.PEAK_BF16_FLOPS
+    log(f"count {tag}: flops {fake.flops} == on the card, bytes "
+        f"{fake.bytes_accessed} == on the card, peak live "
+        f"{fake.peak_live_bytes} B (on the card's count "
+        f"{real.peak_live_bytes}); kernels {fake.kernels} == launches "
+        f"{ {k: v for k, v in launches.items() if v} }; temp bytes: counted "
+        f"{pred} <= card {card} <= {upper} (+{card - pred} B); planted "
+        f"fault, the {drop} B of {drop_tag} alive at the peak dropped: "
+        f"{pred - drop} outside; fake count {fake_s:.1f} s on the host")
+    log(f"count {tag}: step {step_s:.4f} s (median of {COUNT_TIMED}), "
+        f"{tflops:.2f} TFLOP/s achieved = {share:.4f} of the bf16 peak "
+        f"(989 TFLOP/s)")
+    rec = {"flops": fake.flops, "bytes": fake.bytes_accessed,
+           "peak_live_bytes": fake.peak_live_bytes,
+           "card_peak_live_bytes": real.peak_live_bytes,
+           "argument_bytes": fake.argument_bytes, "temp_counted": pred,
+           "temp_card": card, "temp_upper": upper,
+           "planted_fault": {"dropped": drop, "tag": drop_tag},
+           "kernels": fake.kernels, "launches": launches,
+           "fake_count_s": fake_s, "step_s": step_s, "times": times,
+           "tflops": tflops, "peak_share": share}
+    del args
+    free_cuda()
+    return rec
+
+
+def counting_path():
+    """Phase 18: the counts of ``launch/counting.py`` on the card; no
+    process of (d) outlives it."""
+    procs = start_cell_counts()
+    try:
+        return _counting_path(procs)
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _counting_path(procs):
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model, input_specs, param_specs
+    cfg = get_config(COUNT_ARCH)
+    out = {}
+    # (a) phase 17's train step, remat full
+    shape = ShapeConfig("phase18_train", "train", TRAIN_T, TRAIN_B)
+    step, args, _, _, _ = dryrun.build_cell(cfg, shape, "cuda", COUNT_ARCH)
+    out["train"] = counted_step(f"train {COUNT_ARCH} B={TRAIN_B} "
+                                f"T={TRAIN_T} remat full", step, args,
+                                lambda a: a)
+    # (b) prefill_32k's length at batch 1: the cache-less forward
+    model = build_model(cfg)
+    shape = ShapeConfig("phase18_prefill", "prefill", COUNT_PREFILL_T, 1)
+    fargs = (param_specs(cfg, "cuda"),
+             {"tokens": input_specs(cfg, shape, "cuda")["batch"]["tokens"]})
+    with torch.no_grad():
+        out["prefill"] = counted_step(
+            f"prefill {COUNT_ARCH} B=1 T={COUNT_PREFILL_T} (cache-less "
+            "forward, K4)", lambda p, b: model.apply(p, b)[0], fargs,
+            lambda a: a)
+        # decode_32k's cache at the largest batch that fits
+        B = COUNT_DECODE_B
+        while True:
+            shape = ShapeConfig("phase18_decode", "decode", COUNT_DECODE_S, B)
+            step, args, _, _, _ = dryrun.build_cell(cfg, shape, "cuda")
+            peak = dryrun.count_cell(COUNT_ARCH, shape, "cuda")[0] \
+                .peak_live_bytes
+            if peak <= DECODE_FIT_BYTES or B == 1:
+                break
+            B //= 2
+        out["decode"] = counted_step(
+            f"decode {COUNT_ARCH} B={B} S={COUNT_DECODE_S}", step, args,
+            lambda a: a[:3] + (COUNT_DECODE_S - 1,))
+        out["decode"]["batch"] = B
+    out["cells"] = finish_cell_counts(procs)
+    return out
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -5115,6 +5350,8 @@ def main() -> int:
     lap("phase 16")
     training = training_path()
     lap("phase 17")
+    counts = counting_path()
+    lap("phase 18")
     faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
@@ -5127,6 +5364,7 @@ def main() -> int:
                     "moe": moe, "paged": main["paged"], "spec": spec,
                     "faults": faults, "gateway": gateway,
                     "families": families, "training": training,
+                    "counts": counts,
                     "k4_backward": bkern,
                     "phase_seconds": {k: v for k, v in laps.items()
                                       if k != "_last"},
@@ -5134,6 +5372,12 @@ def main() -> int:
     # kernel -> (the MoE run's tag, its results)
     moe_q = {kname: (qtag, moe["quant"][qtag])
              for qtag, _, kname in MOE_QUANT}
+    # phase 18's counted runs on the card, K4 forward and backward
+    counted = {unit: {f"counted {kind} (phase 18)":
+                      counts[kind]["launches"][unit]
+                      for kind in ("train", "prefill", "decode")
+                      if counts[kind]["launches"][unit]}
+               for unit in ("K4", "K4bwd")}
     kernels = [
         kernel_entry("streamed_matmul", "streamed_matmul.py:95",
                      main["launches"] + moe["launches"]
@@ -5159,12 +5403,14 @@ def main() -> int:
         kernel_entry("flash_attention", "flash_attention.py:104",
                      vision["launches"] + language["launches"]
                      + sum(families["launches"].values())
-                     + sum(training["k4_by_path"].values()),
+                     + sum(training["k4_by_path"].values())
+                     + sum(counted["K4"].values()),
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
                      source="flash_attention_mma"),
         kernel_entry("flash_attention_backward", "flash_attention.py:104",
-                     sum(training["k4_bwd_by_path"].values()),
+                     sum(training["k4_bwd_by_path"].values())
+                     + sum(counted["K4bwd"].values()),
                      bkern["max_abs_err"], bkern["shapes"],
                      bkern["shapes"][0], source="flash_attention_bwd_mma")]
     kernels[0].update({"launches_by_path": {
@@ -5202,7 +5448,8 @@ def main() -> int:
         "completes": "the forward K4 (flash_attention.py:104), whose "
                      "Pallas kernel has no backward: the reference "
                      "differentiates its jnp attend_flash by autodiff",
-        "launches_by_path": training["k4_bwd_by_path"],
+        "launches_by_path": {**training["k4_bwd_by_path"],
+                             **counted["K4bwd"]},
         "checked_shapes": bkern["checked"],
         "check_launches_by_variant": bkern["variant_launches"],
         "planted_faults": bkern["planted_faults"]})
@@ -5210,7 +5457,8 @@ def main() -> int:
         "launches_by_path": {
             "vision_720p_encode": vision["launches"],
             f"language_forward_T{language['T']}": language["launches"],
-            **families["launches"], **training["k4_by_path"]},
+            **families["launches"], **training["k4_by_path"],
+            **counted["K4"]},
         "launches_by_variant": {
             "vision_720p_encode": vision["variant_launches"],
             f"language_forward_T{language['T']}":

@@ -41,6 +41,15 @@ rounded to bf16 as the products' operands, f32 sums), and ``"fma"``,
 cores: f32, and bf16 at any other shape); on a CPU tensor the plain
 ``kernels/ref.py::flash_attention_bwd_ref``. Under no grad (serving) the
 wrappers take the forward kernel alone, as before.
+
+Counting. Inside ``launch/counting.py``'s ``count_step`` each call of the
+forward (``flash_attention``, ``ops.flash_attention_bthd``,
+``FlashAttention``) is one unit ``"K4"`` and each backward one unit
+``"K4bwd"``, counted by hand (``counting.flash_work``,
+``flash_bwd_work``); the outputs (lse included) take the kernel's
+layout, contiguous in the caller's layout: empties on fake tensors, the
+plain version's results copied in on the CPU, the kernel's on the card;
+the backward's f32 D scratch is a temporary (``count_unit``).
 """
 from __future__ import annotations
 
@@ -49,10 +58,11 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.device import needs_grad, on_cpu
+from repro_torch.device import is_fake, needs_grad, on_cpu
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
+from repro_torch.launch import counting
 
 MAX_HEAD_DIM = 128
 
@@ -178,6 +188,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.variant_launches`` (``kernel_variant``)."""
     if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, block_q, block_k, False)
+    if counting.active() is not None:
+        shape = check_inputs(q, k, v, block_q, block_k)
+        return count_unit("K4", counting.flash_work(shape, causal,
+                                                  q.element_size()),
+                        q, ((q.shape, q.dtype),),
+                        lambda: (_forward(q, k, v, causal, block_q,
+                                          block_k),))
+    return _forward(q, k, v, causal, block_q, block_k)
+
+
+def count_unit(unit, work, x, like, run, temporaries=()):
+    """One K4 or K4-backward call on ``x``'s device inside a count: the
+    hand count ``work`` and the outputs as the kernel lays them out,
+    contiguous with the (shape, dtype) of ``like``: empties on fake
+    tensors; on the CPU the plain version's results (``run()``) copied
+    into such tensors, so the step's later ops are the card's; on the card
+    ``run()``'s own."""
+    with counting.active().unit(unit, work, temporaries, x.device) as done:
+        if is_fake(x):
+            return done(*(torch.empty(tuple(s), dtype=d, device=x.device)
+                          for s, d in like))
+        res = run()
+        if x.device.type == "cpu":
+            res = [torch.empty(tuple(s), dtype=d).copy_(r)
+                   for (s, d), r in zip(like, res)]
+        return done(*res)
+
+
+def _forward(q, k, v, causal, block_q, block_k):
     cpu = on_cpu("flash_attention", q, k, v)
     check_inputs(q, k, v, block_q, block_k)
     if cpu:
@@ -271,6 +310,20 @@ def flash_attention_backward(q, k, v, dout, lse, *, causal, bthd=False):
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     views = [_heads(t, bthd) for t in (q, k, v, dout)]
+    if counting.active() is not None:
+        shape = check_inputs(*views[:3], 1, 1)
+        B, H, _, Tq, Tk, _ = shape
+        delta = (((B, H, Tq), torch.float32),) if B * H * Tq and Tk else ()
+        return tuple(count_unit(
+            "K4bwd", counting.flash_bwd_work(shape, causal,
+                                             q.element_size()),
+            q, [(t.shape, t.dtype) for t in (q, k, v)],
+            lambda: _backward(q, k, v, dout, lse, views, causal, bthd),
+            delta))
+    return _backward(q, k, v, dout, lse, views, causal, bthd)
+
+
+def _backward(q, k, v, dout, lse, views, causal, bthd):
     if on_cpu("flash_attention_backward", q, k, v, dout, lse):
         grads = flash_attention_bwd_ref(*views, lse, causal=causal)
         return tuple(_heads(g, bthd) for g in grads)
@@ -294,6 +347,27 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k, bthd):
+        if counting.active() is not None:
+            shape = check_inputs(*(_heads(t, bthd) for t in (q, k, v)),
+                                 block_q, block_k)
+            B, H, _, Tq, _, _ = shape
+            out, lse = count_unit(
+                "K4", counting.flash_work(shape, causal, q.element_size(),
+                                          lse=True),
+                q, ((q.shape, q.dtype), ((B, H, Tq), torch.float32)),
+                lambda: FlashAttention.run(q, k, v, causal, block_q,
+                                           block_k, bthd))
+        else:
+            out, lse = FlashAttention.run(q, k, v, causal, block_q, block_k,
+                                          bthd)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.bthd = causal, bthd
+        return out
+
+    @staticmethod
+    def run(q, k, v, causal, block_q, block_k, bthd):
+        """The forward's (out, lse): the plain version on the CPU, the
+        kernel on the card."""
         qh, kh, vh = (_heads(t, bthd) for t in (q, k, v))
         cpu = on_cpu("flash_attention", q, k, v)
         B, H, _, Tq, _, _ = check_inputs(qh, kh, vh, block_q, block_k)
@@ -307,9 +381,7 @@ class FlashAttention(torch.autograd.Function):
                               device=q.device)
             launch(qh, kh, vh, _heads(out, bthd), causal=causal,
                    block_q=block_q, block_k=block_k, lse=lse)
-        ctx.save_for_backward(q, k, v, lse)
-        ctx.causal, ctx.bthd = causal, bthd
-        return out
+        return out, lse
 
     @staticmethod
     def backward(ctx, dout):

@@ -32,6 +32,13 @@ K2 and K3 take no gradient: their weights are integer codes, which the
 reference cannot differentiate either, and a call that autograd would
 need to differentiate raises.
 
+Counting. Inside ``launch/counting.py``'s ``count_step`` each call is one
+unit counted by hand (``_counted``): 2MKN operations and x, the stored
+weight and y moved once, the bf16 kernel's split-K workspace and tile
+counters as temporaries, and an empty (M, N) output on fake tensors (the
+plain version on the CPU and the kernel on the card otherwise, as
+outside a count). Outside a count a fake tensor raises (``on_cpu``).
+
 Grouping convention shared by every quantiser here, as in the reference:
 for a (K, N) matrix and a nominal group size ``g0``, the K axis is split
 into ``G = ceil(K / g0)`` balanced groups of ``g = ceil(K / G)`` rows
@@ -48,11 +55,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.device import needs_grad, on_cpu
+from repro_torch.device import is_fake, needs_grad, on_cpu
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import (streamed_matmul_int4_ref,
                                      streamed_matmul_int8_ref,
                                      streamed_matmul_ref)
+from repro_torch.launch import counting
 
 # Nominal quantisation group size along K (AWQ-style); balanced groups of
 # ceil(K / ceil(K / GROUP_SIZE)) rows are derived from it per matrix. The
@@ -329,8 +337,35 @@ def _no_grad_only(name, x):
                            "are not trained (K2 and K3 have no backward)")
 
 
+def _counted(name, unit, x, weights, K_w, run):
+    """A K1, K2 or K3 call inside a count (``launch/counting.py``): the
+    hand count of (M, K) @ (K, N) with the stored weight ``weights``
+    (codes, scales, zeros) read once; the bf16 kernel's f32 split-K
+    workspace and per-tile counters as temporaries where ``split_plan``
+    splits K; and the output: an empty (M, N) on fake tensors, else
+    ``run()`` (the plain version on the CPU, the kernel on the card)."""
+    M, K, N = _check(name, x, weights[0], K_w, weights[0].shape[-1])
+    work = counting.matmul_work(M, K, N, x.element_size(),
+                                w_bytes=sum(map(counting.nbytes, weights)))
+    shape = workspace_shape(M, K, N) if x.dtype == torch.bfloat16 \
+        and M and N else None
+    temps = () if shape is None else (
+        (shape, torch.float32),
+        ((-(-shape[1] // 16) * -(-N // MMA_BN),), torch.int32))
+    with counting.active().unit(unit, work, temps, x.device) as done:
+        return done(torch.empty((M, N), dtype=x.dtype, device=x.device)
+                    if is_fake(x) else run())
+
+
 def _streamed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1's launch (or its plain version on the CPU), counted."""
+    if counting.active() is not None:
+        return _counted("streamed_matmul", "K1", x, (w,), w.shape[0],
+                        lambda: _k1(x, w))
+    return _k1(x, w)
+
+
+def _k1(x, w):
     if on_cpu("streamed_matmul", x, w):
         return streamed_matmul_ref(x, w)
     if w.dtype != x.dtype:
@@ -404,6 +439,14 @@ def streamed_matmul_int8(x: torch.Tensor, w_q: torch.Tensor,
     per kernel ``streamed_matmul_int8.variant_launches``."""
     name = "streamed_matmul_int8"
     _no_grad_only(name, x)
+    if counting.active() is not None:
+        return _counted(name, "K2", x, (w_q, scales), w_q.shape[0],
+                        lambda: _k2(x, w_q, scales))
+    return _k2(x, w_q, scales)
+
+
+def _k2(x, w_q, scales):
+    name = "streamed_matmul_int8"
     if on_cpu(name, x, w_q, scales):
         return streamed_matmul_int8_ref(x, w_q, scales)
     M, K, N = _check(name, x, w_q, w_q.shape[0], w_q.shape[-1])
@@ -440,6 +483,15 @@ def streamed_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor,
     ``streamed_matmul_int4.variant_launches``."""
     name = "streamed_matmul_int4"
     _no_grad_only(name, x)
+    if counting.active() is not None:
+        return _counted(name, "K3", x, (w_packed, scales, zeros),
+                        2 * w_packed.shape[0],
+                        lambda: _k3(x, w_packed, scales, zeros))
+    return _k3(x, w_packed, scales, zeros)
+
+
+def _k3(x, w_packed, scales, zeros):
+    name = "streamed_matmul_int4"
     if on_cpu(name, x, w_packed, scales, zeros):
         return streamed_matmul_int4_ref(x, w_packed, scales, zeros)
     M, K, N = _check(name, x, w_packed, 2 * w_packed.shape[0],

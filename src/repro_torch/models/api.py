@@ -1,6 +1,7 @@
 """Public model API: ``build_model(cfg)`` -> Model with init/apply/loss, the
-masked LM ``cross_entropy``, and the bridge that carries the JAX package's
-parameters (as numpy) into the port.
+masked LM ``cross_entropy``, the bridge that carries the JAX package's
+parameters (as numpy) into the port, and the specs a count runs on
+(``param_specs``, ``input_specs``, ``cache_specs``).
 """
 from __future__ import annotations
 
@@ -8,9 +9,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.models import hybrid, transformer, xlstm
+from repro_torch.models.common import tree_map
 
 _FAMILY_MODULES = {
     "dense": transformer,
@@ -119,3 +123,87 @@ def params_from_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree))
+
+
+# ---------------------------------------------------------------- specs
+_SPEC_MODE = None
+
+
+def spec_mode() -> FakeTensorMode:
+    """The fake tensor mode the specs are made in: the one active, else
+    one shared by every spec this process makes (tensors of two fake modes
+    cannot meet in one op)."""
+    global _SPEC_MODE
+    mode = detect_fake_mode()
+    if mode is not None:
+        return mode
+    if _SPEC_MODE is None:
+        _SPEC_MODE = FakeTensorMode()
+    return _SPEC_MODE
+
+
+def param_specs(cfg: ModelConfig, device="cuda"):
+    """The param tree of ``cfg`` as fake tensors on ``device`` (shapes,
+    dtypes, no storage), on a card or not. Built by ``init_params`` itself
+    under ``spec_mode()``, on a CPU generator: in the mode every draw,
+    quantisation and stack is a fake tensor, so nothing is allocated and
+    the tree is the one a real init makes, quantised leaves included,
+    without a second description of it; the leaves then take ``device``
+    (fake tensors of the same shapes and dtypes: a CPU-only build cannot
+    copy a fake tensor to a CUDA device, but it can make one there)."""
+    device = torch.device(device)
+    with spec_mode():
+        params = build_model(cfg).init(torch.Generator().manual_seed(0))
+        if device.type != "cpu":
+            params = tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device=device), params)
+    return params
+
+
+def cache_specs(cfg: ModelConfig, batch, max_seq, device="cuda"):
+    """The serving cache of ``cfg`` for ``batch`` sequences of up to
+    ``max_seq`` tokens as fake tensors on ``device``: ``init_cache``
+    under ``spec_mode()``."""
+    with spec_mode():
+        return build_model(cfg).init_cache(batch, max_seq, device=device)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="cuda") -> dict:
+    """Fake tensors on ``device`` for every input of the step this
+    (arch, shape) cell runs, as the reference's ``input_specs``: train
+    ``{"batch"}``, prefill ``{"batch", "cache"}``, decode ``{"batch",
+    "cache", "pos"}``; int32 tokens and labels ((B, S, nq) for the audio
+    family); the vlm family's ``vision_embeds`` (bf16, in front of S - nv
+    tokens), 3D ``positions`` and ``loss_mask``; decode one token against
+    a cache of S, at a 0-dim int32 ``pos`` (``launch/dryrun.py`` reads the
+    position as the int the port's decode takes)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def t(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+    with spec_mode():
+        tok = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+        if shape.kind == "decode":
+            batch = {"tokens": t((B, 1, cfg.n_codebooks) if cfg.n_codebooks
+                                 else (B, 1), i32)}
+            if cfg.family == "vlm":
+                batch["positions"] = t((3, B, 1), i32)
+            return {"batch": batch,
+                    "cache": cache_specs(cfg, B, S, device),
+                    "pos": t((), i32)}
+        if cfg.family == "vlm":
+            nv = cfg.n_vision_tokens
+            batch = {"tokens": t((B, S - nv), i32),
+                     "vision_embeds": t((B, nv, cfg.d_model), bf16),
+                     "positions": t((3, B, S), i32)}
+            if shape.kind == "train":
+                batch.update(labels=t((B, S), i32),
+                             loss_mask=t((B, S), torch.float32))
+        else:
+            batch = {"tokens": t(tok, i32)}
+            if shape.kind == "train":
+                batch["labels"] = t(tok, i32)
+        if shape.kind == "train":
+            return {"batch": batch}
+        return {"batch": batch, "cache": cache_specs(cfg, B, S, device)}

@@ -7,6 +7,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.device import is_fake
+from repro_torch.launch import counting
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -141,25 +144,38 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+def _cached(cache, key, fake, make):
+    """``cache[key]``, made by ``make()`` on first use: a constant of the
+    program, so inside a count it is neither counted nor tracked
+    (``counting.constant``). For fake tensors (``fake``: a count's specs)
+    it is made anew each time and never stored, so no fake tensor is left
+    in ``cache`` for a later real run, or a later count, to read."""
+    with counting.constant():
+        if fake:
+            return make()
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
+
+
 _FREQS = {}   # (head_dim, theta, device) -> the rope_freqs tensor
 
 
-def _device_freqs(head_dim: int, theta: float,
-                  device: torch.device) -> torch.Tensor:
+def _device_freqs(head_dim: int, theta: float, device: torch.device,
+                  fake: bool = False) -> torch.Tensor:
     """``rope_freqs`` on ``device``, copied there once: a copy from
     pageable host memory blocks the host, and rope runs twice per
-    attention step."""
-    key = (head_dim, theta, device)
-    if key not in _FREQS:
-        _FREQS[key] = torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
-    return _FREQS[key]
+    attention step. ``fake``: for fake tensors (``_cached``)."""
+    return _cached(_FREQS, (head_dim, theta, device), fake,
+                   lambda: torch.from_numpy(rope_freqs(head_dim, theta))
+                   .to(device))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., T, H, hd); positions: broadcastable to (..., T)."""
     hd = x.shape[-1]
-    freqs = _device_freqs(hd, theta, x.device)
+    freqs = _device_freqs(hd, theta, x.device, is_fake(x))
     angles = positions[..., None].to(torch.float32) * freqs  # (..., T, hd/2)
     angles = angles[..., None, :]          # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -171,19 +187,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 _MROPE_AXES = {}   # (half, sections, device) -> the slot -> axis tensor
 
 
-def _mrope_axes(half: int, sections, device: torch.device) -> torch.Tensor:
+def _mrope_axes(half: int, sections, device: torch.device,
+                fake: bool = False) -> torch.Tensor:
     """Which position axis (t, h, w) drives each of the ``half`` frequency
     slots: ``sections`` scaled to ``half`` with floor, the last section
     taking the remainder, as the reference scales them. Copied to
     ``device`` once, as ``_device_freqs``."""
-    key = (half, tuple(sections), device)
-    if key not in _MROPE_AXES:
+    def make():
         sec = np.array(sections, dtype=np.float64)
         sec = np.floor(sec / sec.sum() * half).astype(int)
         sec[-1] = half - sec[:-1].sum()
         axes = np.concatenate([np.full(s, i) for i, s in enumerate(sec)])
-        _MROPE_AXES[key] = torch.from_numpy(axes).to(device)
-    return _MROPE_AXES[key]
+        return torch.from_numpy(axes).to(device)
+    return _cached(_MROPE_AXES, (half, tuple(sections), device), fake, make)
 
 
 def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
@@ -193,8 +209,8 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     axes by ``sections`` (scaled to hd/2); the angles are f32."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = _device_freqs(hd, theta, x.device)
-    axis_id = _mrope_axes(half, sections, x.device)
+    freqs = _device_freqs(hd, theta, x.device, is_fake(x))
+    axis_id = _mrope_axes(half, sections, x.device, is_fake(x))
     pos = torch.movedim(positions_3d, 0, -1)[..., axis_id]  # (..., T, half)
     angles = (pos.to(torch.float32) * freqs)[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -213,13 +229,14 @@ def sinusoidal_positions(positions: torch.Tensor,
     half)``, computed in that order on the positions' device, once (as
     ``_device_freqs``: a decode step adds them)."""
     half = d_model // 2
-    key = (half, positions.device)
-    if key not in _SIN_FREQS:
-        i = torch.arange(half, dtype=torch.float32, device=positions.device)
-        _SIN_FREQS[key] = torch.exp(
-            torch.tensor(-np.log(10000.0), dtype=torch.float32,
-                         device=positions.device) * i / half)
-    ang = positions[..., None].to(torch.float32) * _SIN_FREQS[key]
+    dev = positions.device
+
+    def make():
+        i = torch.arange(half, dtype=torch.float32, device=dev)
+        return torch.exp(torch.tensor(-np.log(10000.0), dtype=torch.float32,
+                                      device=dev) * i / half)
+    freqs = _cached(_SIN_FREQS, (half, dev), is_fake(positions), make)
+    ang = positions[..., None].to(torch.float32) * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_fake
 from repro_torch.kernels.streamed_matmul import (GROUP_SIZE, _f32,
                                                  dequant_int4, dequant_int8,
                                                  quantize_int4,
@@ -228,8 +229,13 @@ def _route(x, router, m):
 def _dispatch_positions(idx, n_local, keep_mask):
     """Position of each (token, choice) in its expert's capacity buffer:
     the exclusive running count of kept assignments per expert. idx: (A,)
-    local expert ids; keep_mask: (A,) bool."""
-    onehot = F.one_hot(idx, n_local) * keep_mask[:, None].to(torch.int64)
+    local expert ids in [0, n_local); keep_mask: (A,) bool. The one-hot is
+    ``idx == arange``, which ``F.one_hot`` computes for these ids too, but
+    by one set of ops on every device: ``F.one_hot`` checks its ids on the
+    host's tensors only and takes other ops for a fake tensor, so a count
+    would see the card's step and a CPU step differ."""
+    onehot = (idx[:, None] == torch.arange(n_local, device=idx.device)) \
+        .to(torch.int64) * keep_mask[:, None].to(torch.int64)
     pos_in_expert = torch.cumsum(onehot, dim=0) - onehot
     return (pos_in_expert * onehot).sum(-1)
 
@@ -276,7 +282,12 @@ def moe_combine(out_buf, aux, n_tokens, dtype):
 
 def routed_experts(idx, n_experts):
     """The sorted expert ids ``idx`` selects, read on the host; the
-    out-of-range id E that padded positions carry is left out."""
+    out-of-range id E that padded positions carry is left out. A fake
+    ``idx`` (a count's specs, ``launch/counting.py``) has no ids to read:
+    every expert counts as routed, over its capacity rows, the static
+    bound that the reference's graph computes."""
+    if is_fake(idx):
+        return list(range(n_experts))
     ids = np.unique(idx.cpu().numpy())
     return [int(e) for e in ids if e < n_experts]
 

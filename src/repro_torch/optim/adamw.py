@@ -11,9 +11,11 @@ global norm sums them in the reference's order. Weight decay applies to
 leaves of ndim >= 2 only; ``state_dtype`` sets m and v's dtype.
 
 The reference's ``offload_states`` (its launcher maps the state to
-``pinned_host`` memory, ZeRO-offload) has no counterpart on one card yet:
-the state stays on the params' device, and ``OptConfig`` has no such
-field.
+``pinned_host`` memory, ZeRO-offload) has no runtime counterpart on one
+card: the state stays on the params' device, and ``OptConfig`` has no
+such field. ``launch/dryrun.py`` counts the state its ``offload_opt``
+override would keep off the card (``host_argument_bytes``), as the
+reference only compiles that path.
 """
 from __future__ import annotations
 
