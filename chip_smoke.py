@@ -228,7 +228,24 @@ Phases (each raises on failure; the last line is printed only if all pass):
    share of the bf16 peak (not gated); (d) the fake-tensor records of
    qwen2-0.5b's three cells and xlstm-125m's four through
    ``python -m repro_torch.launch.dryrun``, each process under a wall
-   guard, run beside (a)-(c).
+   guard, run beside (a)-(c);
+19. the examples' twins (``examples/*_torch.py``), each ``main(argv)``
+   called in process under a wall guard, its kernels counted from 0:
+   ``serve_vram_budget_torch`` at qwen2-0.5b's published config (tokens
+   identical across 2.0x, 0.5x and 0.1x and across the live re-budget,
+   streamed bytes at 0.1x, each session's peak within ``memory_bound``,
+   K1 on the tensor cores only) and at its default, qwen30b-a3b's smoke
+   config (the same token gates); ``quickstart_torch`` at qwen2-0.5b's
+   published config (tokens identical across its re-budget);
+   ``serve_http_torch`` at qwen2-0.5b's published config on a socket
+   (stream == unary, the in-flight stream unchanged across
+   ``/admin/rebudget``, ``/metrics`` completed 4); ``vlm_budget_torch``
+   (the f32 encoder's flash encodes against the plain one within the f32
+   K4 atol, 28 K4 launches on the CUDA-core kernel, the grid and plans
+   equal to a CPU run's); ``train_lm_torch`` with the 100m preset at
+   T = 4096, B = 2, 30 steps and a fault at step 25 (the restart from
+   step 20, the replayed losses bit-equal, the loss falling, K4 forward
+   and backward once a layer per step pass, on the tensor cores).
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -1488,14 +1505,16 @@ def expected_streamed_by_dtype(ex, segments=None):
 
 
 def kv_device_bytes(sess):
-    """The KV cache's device bytes: the stacked (L, B, KV, S, hd) pair, or
-    a paged cache's two page pools (the null page included)."""
+    """The KV cache's device bytes: the stacked (L, B, KV, S, hd) pair at
+    the batcher's batch and the session's ``max_seq``, or a paged cache's
+    two page pools (the null page included)."""
     from repro_torch.core.kvpaged import PagedKVCache
     cfg = sess.cfg
     kv = sess._batcher.kv if sess._batcher is not None else None
     if isinstance(kv, PagedKVCache):
         return 2 * kv.n_pages * kv.page_bytes
-    return 2 * cfg.n_layers * MAX_BATCH * cfg.n_kv_heads * MAX_SEQ \
+    batch = sess._batcher_cfg[0] if sess._batcher_cfg else MAX_BATCH
+    return 2 * cfg.n_layers * batch * cfg.n_kv_heads * sess.max_seq \
         * cfg.resolved_head_dim * 2
 
 
@@ -5217,6 +5236,324 @@ def _counting_path(procs):
     return out
 
 
+# ------------------------------------------------------------ phase 19
+# the examples' twins (``examples/*_torch.py``), each ``main`` called in
+# process on the card, on this thread, under a wall guard
+EXAMPLES_ARCH = "qwen2-0.5b"
+EXAMPLES_WALL_S = 300.0
+# vlm_budget's encoder: N = 256 patches, 2 layers, one K4 launch per layer
+# and Q-chunk of 32, 64 and 128 rows
+EXAMPLES_VLM_LAUNCHES = (256 // 32 + 256 // 64 + 256 // 128) * 2
+EXAMPLES_TRAIN_B, EXAMPLES_TRAIN_T = 2, 4096
+EXAMPLES_TRAIN_STEPS, EXAMPLES_TRAIN_FAULT = 30, 25
+EXAMPLES_TRAIN_CKPT_EVERY = 20            # train_lm's own
+EXAMPLES_TRAIN_ARGS = ["--preset", "100m", "--seq", str(EXAMPLES_TRAIN_T),
+                       "--batch", str(EXAMPLES_TRAIN_B),
+                       "--steps", str(EXAMPLES_TRAIN_STEPS),
+                       "--inject-fault", str(EXAMPLES_TRAIN_FAULT)]
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv, twin=None):
+    """``examples/<name>.py``'s ``main(argv)`` (``twin``: the module,
+    already loaded) under a wall guard, with every kernel's count set to
+    0 just before and read just after: (its result, launches, launches by
+    kernel variant, seconds)."""
+    import torch
+    twin = twin or load_example(name)
+    free_cuda()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = guarded(f"examples {name}", lambda: twin.main(argv),
+                  seconds=EXAMPLES_WALL_S)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, variants = read_launches(), read_variants()
+    log(f"examples {name} {' '.join(argv)}: {secs:.1f} s, launches "
+        f"{counts}, by kernel {variants}")
+    return res, counts, variants, secs
+
+
+def watched_session(peaks):
+    """A ``Session`` whose ``serve`` keeps, in ``peaks``, one entry per
+    session: its own device peak against ``memory_bound``, read after each
+    serve made before any re-plan. The peak is reset at the session's
+    first serve, once the collector has freed the session before; what is
+    allocated then belongs to no session (the earlier phases leave, among
+    other things, the cuBLAS workspace of autograd's thread), so the
+    session's own peak is ``max_memory_allocated`` less it, as phase 18
+    counts a step's temporary bytes."""
+    import torch
+    from repro_torch import Session
+
+    class Watched(Session):
+        def serve(self, requests, **kw):
+            if not hasattr(self, "_peak_index"):
+                self._peak_index = len(peaks)
+                peaks.append(None)
+                free_cuda()
+                torch.cuda.reset_peak_memory_stats()
+                self._allocated_before = torch.cuda.memory_allocated()
+            out = super().serve(requests, **kw)
+            if not self.replan_log:
+                torch.cuda.synchronize()
+                lim, parts = memory_bound(self)
+                raw = torch.cuda.max_memory_allocated()
+                peaks[self._peak_index] = {
+                    "budget_bytes": self.budget_bytes,
+                    "before": self._allocated_before, "peak_raw": raw,
+                    "peak": raw - self._allocated_before,
+                    "bound": lim, "parts": parts}
+            return out
+    return Watched
+
+
+def _want_k1(tag, counts, variants, mma_only):
+    """K1 launched (all on the tensor cores with ``mma_only``), and no
+    other kernel."""
+    others = {k: n for k, n in counts.items() if k != "K1" and n}
+    if counts["K1"] <= 0 or others:
+        raise AssertionError(f"{tag}: launches {counts}, want K1 only")
+    if mma_only and variants["K1"] != {"mma": counts["K1"], "fma": 0}:
+        raise AssertionError(f"{tag}: K1 by kernel {variants['K1']}, not "
+                             "all on the tensor cores")
+
+
+# the sessions serve_vram_budget serves from: one per budget, then the
+# live re-budget's until its re-plan
+EXAMPLES_PEAK_TAGS = ("2.0x", "0.5x", "0.1x", "2.0x before the re-budget")
+
+
+def examples_serve_vram_budget(out):
+    """serve_vram_budget_torch at qwen2-0.5b's published config (peaks
+    gated) and at its default, qwen30b-a3b's smoke config."""
+    name = "serve_vram_budget_torch"
+    for argv, full in ((["--arch", EXAMPLES_ARCH, "--full"], True),
+                       ([], False)):
+        twin = load_example(name)
+        peaks = []
+        if full:
+            twin.Session = watched_session(peaks)
+        res, counts, variants, secs = run_example(name, argv, twin)
+        tag = f"{name} {res['arch']}"
+        rows = res["rows"]
+        for row in rows:
+            if not row["identical"]:
+                raise AssertionError(f"{tag} {row['budget']}x: tokens "
+                                     "differ from 2.0x")
+        if not rows[-1]["streamed_bytes"] > 0:
+            raise AssertionError(f"{tag}: nothing streamed at 0.1x")
+        if not res["rebudget"]["identical"]:
+            raise AssertionError(f"{tag}: the live re-budget changed the "
+                                 "tokens")
+        log(f"{tag}: tokens identical across budgets 2.0x, 0.5x, 0.1x: "
+            "True")
+        log(f"{tag}: streamed at 0.1x {rows[-1]['streamed_bytes']} B > 0")
+        log(f"{tag}: live rebudget 2.0x -> 0.1x moved "
+            f"{res['rebudget']['moved_bytes']} B "
+            f"({res['rebudget']['summary']}), remaining tokens identical "
+            "to uninterrupted runs: True")
+        _want_k1(tag, counts, variants, mma_only=full)
+        if full:
+            if len(peaks) != len(EXAMPLES_PEAK_TAGS) or None in peaks:
+                raise AssertionError(f"{tag}: peaks {peaks}, want one per "
+                                     f"session {EXAMPLES_PEAK_TAGS}")
+            for when, b in zip(EXAMPLES_PEAK_TAGS, peaks):
+                log(f"{tag} {when}: peak device memory {b['peak_raw']} B "
+                    f"less {b['before']} B allocated before the session = "
+                    f"{b['peak']} B <= bound {b['bound']} B {b['parts']}")
+                if b["peak"] > b["bound"]:
+                    raise AssertionError(f"{tag} {when}: peak {b['peak']} "
+                                         f"> {b['bound']}")
+        log(f"{tag}: K1 launches {counts['K1']} (by kernel "
+            f"{variants['K1']})")
+        out[tag] = {
+            "rows": [{k: r[k] for k in ("budget", "served_s",
+                                        "streamed_bytes", "engine_calls",
+                                        "identical")} for r in rows],
+            "rebudget": {k: res["rebudget"][k] for k in (
+                "moved_bytes", "summary", "identical")},
+            "peaks": [{k: b[k] for k in ("budget_bytes", "before",
+                                         "peak_raw", "peak", "bound")}
+                      for b in peaks],
+            "launches": counts, "variants": variants, "seconds": secs}
+
+
+def examples_quickstart(out):
+    res, counts, variants, secs = run_example(
+        "quickstart_torch", ["--arch", EXAMPLES_ARCH, "--full"])
+    tag = f"quickstart_torch {EXAMPLES_ARCH}"
+    if not res["identical"]:
+        raise AssertionError(f"{tag}: tokens differ across budgets")
+    _want_k1(tag, counts, variants, mma_only=True)
+    log(f"{tag} full width: tokens identical across budgets: True "
+        f"(2.0x -> 0.1x moved {res['moved_bytes']} B, {res['summary']}; "
+        f"sample {res['generated'][0]})")
+    log(f"{tag}: K1 launches {counts['K1']} (by kernel {variants['K1']})")
+    out[tag] = {"identical": True, "moved_bytes": res["moved_bytes"],
+                "summary": res["summary"], "generated": res["generated"],
+                "launches": counts, "variants": variants, "seconds": secs}
+
+
+def examples_serve_http(out):
+    res, counts, variants, secs = run_example(
+        "serve_http_torch", ["--arch", EXAMPLES_ARCH, "--full", "--port",
+                             "0"])
+    tag = f"serve_http_torch {EXAMPLES_ARCH}"
+    # the twin raises itself when stream != unary or the in-flight tokens
+    # moved across the re-budget; checked again from what it returned
+    if res["stream_tokens"] != res["unary_tokens"] or \
+            res["inflight_tokens"] != res["baseline_tokens"]:
+        raise AssertionError(f"{tag}: stream {res['stream_tokens']} unary "
+                             f"{res['unary_tokens']} in flight "
+                             f"{res['inflight_tokens']} baseline "
+                             f"{res['baseline_tokens']}")
+    if res["completed"] != 4 or not res["reconciles"]:
+        raise AssertionError(f"{tag}: /metrics completed "
+                             f"{res['completed']}, reconciles "
+                             f"{res['reconciles']}")
+    _want_k1(tag, counts, variants, mma_only=True)
+    log(f"{tag} full width over a socket: stream == unary "
+        f"{res['stream_tokens']}")
+    log(f"{tag}: in-flight == baseline across /admin/rebudget "
+        f"({res['rebudget']['summary']}): {res['inflight_tokens']}")
+    log(f"{tag}: /metrics completed 4, reconciles True, ttft_p50 "
+        f"{res['ttft_p50_s']:.4f} s")
+    log(f"{tag}: K1 launches {counts['K1']} (by kernel {variants['K1']})")
+    out[tag] = {k: res[k] for k in ("stream_tokens", "inflight_tokens",
+                                    "completed", "reconciles",
+                                    "ttft_p50_s")}
+    out[tag].update({"rebudget": res["rebudget"]["summary"],
+                     "launches": counts, "variants": variants,
+                     "seconds": secs})
+
+
+def examples_vlm_budget(out):
+    res, counts, variants, secs = run_example("vlm_budget_torch", [])
+    tag = "vlm_budget_torch"
+    atol = TOL["float32"]["atol"]
+    for f in res["flash"]:
+        if not f["max_err"] <= atol:
+            raise AssertionError(f"{tag} q_chunk {f['q_chunk']}: max err "
+                                 f"{f['max_err']} > {atol}")
+    want = {name: 0 for name in counts}
+    want["K4"] = EXAMPLES_VLM_LAUNCHES
+    if counts != want or variants["K4"] != {"mma": 0,
+                                            "fma": EXAMPLES_VLM_LAUNCHES}:
+        raise AssertionError(f"{tag}: launches {counts} by kernel "
+                             f"{variants}, want {EXAMPLES_VLM_LAUNCHES} K4 "
+                             "on fma")
+    # the grid, the reduction and the plans are analytic: the card's run
+    # prints what the host's does
+    cpu = guarded(f"examples {tag} --device cpu",
+                  lambda: load_example(tag).main(["--device", "cpu"]),
+                  seconds=EXAMPLES_WALL_S)
+    for key in ("grid", "reduction", "plans"):
+        if res[key] != cpu[key]:
+            raise AssertionError(f"{tag}: {key} on the card {res[key]} != "
+                                 f"on the CPU {cpu[key]}")
+    log(f"{tag}: flash vs plain f32 encoder max |err| "
+        f"{[f['max_err'] for f in res['flash']]} at q_chunk 32, 64, 128, "
+        f"each <= atol {atol} (f32 K4 tolerance rtol "
+        f"{TOL['float32']['rtol']} / atol {atol}, taken at its atol)")
+    log(f"{tag}: K4 launches {counts['K4']} == (256/32 + 256/64 + "
+        f"256/128) x 2 layers (by kernel {variants['K4']})")
+    log(f"{tag}: grid, 1440p reduction {res['reduction']:.1f}x and plans "
+        "equal to the CPU run's: True")
+    out[tag] = {"flash": res["flash"], "reduction": res["reduction"],
+                "plans": res["plans"], "launches": counts,
+                "variants": variants, "seconds": secs}
+
+
+def examples_train_lm(out):
+    import math
+    import shutil
+    import statistics
+    name = "train_lm_torch"
+    twin = load_example(name)
+    n_layers = twin.preset_cfg("100m").n_layers
+    ckpt = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        res, counts, variants, secs = run_example(
+            name, EXAMPLES_TRAIN_ARGS + ["--ckpt-dir", str(ckpt)], twin)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    tag = f"{name} {res['arch']}"
+    fault, steps = EXAMPLES_TRAIN_FAULT, EXAMPLES_TRAIN_STEPS
+    restored = (fault - 1) // EXAMPLES_TRAIN_CKPT_EVERY \
+        * EXAMPLES_TRAIN_CKPT_EVERY
+    events = [(s, k) for s, k, _ in res["events"] if k != "straggler"]
+    if events != [(fault, "fault"), (restored, "restart")]:
+        raise AssertionError(f"{tag}: events {res['events']}, want a fault "
+                             f"at {fault} and a restart at {restored}")
+    losses = [m["loss"] for m in res["log"]]
+    passes = fault + steps - restored
+    if len(losses) != passes or res["steps"] != steps:
+        raise AssertionError(f"{tag}: {len(losses)} step passes, want "
+                             f"{passes}")
+    first, again = losses[restored:fault], losses[fault:2 * fault - restored]
+    if again != first:
+        raise AssertionError(f"{tag}: replayed losses {again} != first "
+                             f"pass {first}")
+    if not all(map(math.isfinite, losses)) or \
+            not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} not finite and "
+                             "falling")
+    _want_attention(counts, variants, passes * n_layers, passes * n_layers,
+                    "mma", tag)
+    step_s = statistics.median(res["step_seconds"][1:])
+    tokens = EXAMPLES_TRAIN_B * EXAMPLES_TRAIN_T
+    stragglers = [e for e in res["events"] if e[1] == "straggler"]
+    log(f"{tag} B={EXAMPLES_TRAIN_B} T={EXAMPLES_TRAIN_T}: events {events} "
+        f"== one fault at {fault}, one restart at {restored} (stragglers, "
+        f"not gated: {stragglers})")
+    log(f"{tag}: replayed steps {restored}-{fault - 1} losses {again} "
+        "bit-equal to the first pass: True")
+    log(f"{tag}: loss {losses[0]:.4f} -> mean of the last 3 "
+        f"{statistics.mean(losses[-3:]):.4f} < first")
+    log(f"{tag}: K4 launches forward {counts['K4']} == backward "
+        f"{counts['K4bwd']} == {passes} step passes x {n_layers} layers "
+        f"(by kernel {variants['K4']} forward, {variants['K4bwd']} "
+        "backward)")
+    log(f"{tag}: step {step_s:.4f} s (median after the first), "
+        f"{tokens / step_s:.1f} train tokens/s")
+    out[tag] = {"losses": losses, "replayed": again, "events": events,
+                "stragglers": stragglers, "tokens_per_s": tokens / step_s,
+                "n_params": res["n_params"], "step_s": step_s,
+                "launches": counts, "variants": variants, "seconds": secs}
+
+
+def examples_path():
+    """Phase 19: the five examples' twins at full width where they have
+    ``--full``: serve_vram_budget (and at its default arch), quickstart,
+    serve_http, vlm_budget and train_lm."""
+    out = {}
+    examples_serve_vram_budget(out)
+    examples_quickstart(out)
+    examples_serve_http(out)
+    examples_vlm_budget(out)
+    examples_train_lm(out)
+    free_cuda()
+    k1 = {f"examples: {tag}": row["launches"]["K1"]
+          for tag, row in out.items() if row["launches"]["K1"]}
+    k4 = {f"examples: {tag}": row["launches"]["K4"]
+          for tag, row in out.items() if row["launches"]["K4"]}
+    k4b = {f"examples: {tag}": row["launches"]["K4bwd"]
+           for tag, row in out.items() if row["launches"]["K4bwd"]}
+    return {"twins": out, "k1_by_path": k1, "k4_by_path": k4,
+            "k4_bwd_by_path": k4b}
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -5352,6 +5689,8 @@ def main() -> int:
     lap("phase 17")
     counts = counting_path()
     lap("phase 18")
+    examples = examples_path()
+    lap("phase 19")
     faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
@@ -5364,7 +5703,7 @@ def main() -> int:
                     "moe": moe, "paged": main["paged"], "spec": spec,
                     "faults": faults, "gateway": gateway,
                     "families": families, "training": training,
-                    "counts": counts,
+                    "counts": counts, "examples": examples["twins"],
                     "k4_backward": bkern,
                     "phase_seconds": {k: v for k, v in laps.items()
                                       if k != "_last"},
@@ -5384,7 +5723,8 @@ def main() -> int:
                      + main["paged"]["launches"] + spec["launches"]
                      + spec["draft_launches"] + faults["launches"]
                      + faults["moe"]["launches"] + faults["spec"]["k1"]
-                     + gateway["launches"] + training["k1_launches"],
+                     + gateway["launches"] + training["k1_launches"]
+                     + sum(examples["k1_by_path"].values()),
                      kern["max_abs_err"], kern["shapes"],
                      headline(kern["shapes"]),
                      source="streamed_matmul_mma"),
@@ -5404,13 +5744,15 @@ def main() -> int:
                      vision["launches"] + language["launches"]
                      + sum(families["launches"].values())
                      + sum(training["k4_by_path"].values())
-                     + sum(counted["K4"].values()),
+                     + sum(counted["K4"].values())
+                     + sum(examples["k4_by_path"].values()),
                      fkern["max_abs_err"], fkern["shapes"],
                      next(s for s in fkern["shapes"] if s["tag"] == "vision"),
                      source="flash_attention_mma"),
         kernel_entry("flash_attention_backward", "flash_attention.py:104",
                      sum(training["k4_bwd_by_path"].values())
-                     + sum(counted["K4bwd"].values()),
+                     + sum(counted["K4bwd"].values())
+                     + sum(examples["k4_bwd_by_path"].values()),
                      bkern["max_abs_err"], bkern["shapes"],
                      bkern["shapes"][0], source="flash_attention_bwd_mma")]
     kernels[0].update({"launches_by_path": {
@@ -5426,7 +5768,8 @@ def main() -> int:
                            f"{SPEC_ARCH} spec faults, with its draft":
                                faults["spec"]["k1"],
                            "qwen2-0.5b gateway": gateway["launches"],
-                           "training (phase 17)": training["k1_launches"]},
+                           "training (phase 17)": training["k1_launches"],
+                           **examples["k1_by_path"]},
                        "launches_by_variant": {
                            "qwen2-0.5b": main["variants"]["K1"],
                            MOE_ARCH: moe["variants"],
@@ -5449,7 +5792,8 @@ def main() -> int:
                      "Pallas kernel has no backward: the reference "
                      "differentiates its jnp attend_flash by autodiff",
         "launches_by_path": {**training["k4_bwd_by_path"],
-                             **counted["K4bwd"]},
+                             **counted["K4bwd"],
+                             **examples["k4_bwd_by_path"]},
         "checked_shapes": bkern["checked"],
         "check_launches_by_variant": bkern["variant_launches"],
         "planted_faults": bkern["planted_faults"]})
@@ -5458,7 +5802,7 @@ def main() -> int:
             "vision_720p_encode": vision["launches"],
             f"language_forward_T{language['T']}": language["launches"],
             **families["launches"], **training["k4_by_path"],
-            **counted["K4"]},
+            **counted["K4"], **examples["k4_by_path"]},
         "launches_by_variant": {
             "vision_720p_encode": vision["variant_launches"],
             f"language_forward_T{language['T']}":
