@@ -37,9 +37,14 @@ Phases (each raises on failure; the last line is printed only if all pass):
    M = 16 and the 256-row slicing, ragged groups too; split-K on two
    streams at once equal to one stream; their times (events and device
    time), their plain versions' times and, as context only,
-   ``torch.matmul`` on the dequantised bf16 weight (not the same function:
-   no single PyTorch call computes these, so their ``library_ms`` is
-   null). Then K4
+   ``torch.matmul`` on the dequantised bf16 weight (not the same
+   function); K3's ``library_ms`` is ``torch._weight_int4pack_mm``
+   (tinygemm: the same function up to bf16's rounding of its scales and
+   zeros, held to K3's plain version within 2e-2 and timed over the same
+   copies; null, with the reason, where this torch has no CUDA kernel for
+   it). K2's is null: ``torch._weight_int8pack_mm`` takes one scale per
+   column, K2 one per 512-row group, so it computes K2's function only
+   where K <= 512. Then K4
    (flash_attention) against its plain version over the sweep of
    tests/test_kernels.py, at the VLM path's vision (720p encoder) and
    language (qwen2-vl-7b at 4096 tokens) shapes and at zamba2-7b's (head
@@ -563,6 +568,45 @@ def _quantise(mode, w, group=None):
     return sm.quantize_int4(w, group_size=group or sm.GROUP_SIZE)
 
 
+# K3's yardstick, torch._weight_int4pack_mm (tinygemm), computes
+# x @ w with w = (q - 8) s' + z' per group of K rows and column, s' and z'
+# in x's dtype. K3's w = (q - z) s is that with s' = s and z' = (8 - z) s,
+# up to bf16's rounding of s' and z'. The op takes groups of 32, 64, 128
+# or 256 rows, N a multiple of 8 and K a multiple of 16 x innerKTiles
+# (2, 4 or 8: the k16 tiles its converted layout interleaves); 8 here, as
+# every shape timed below has K a multiple of 128.
+INT4PACK_INNER_K_TILES = 8
+INT4PACK_GROUPS = (32, 64, 128, 256)
+
+
+def int4pack_operands(packed, scales, zeros):
+    """K3's operands (``packed (K/2, N)`` uint8 with the even row in the
+    low nibble, ``scales (G, N)`` fp16, ``zeros (G, N)`` uint8) as
+    ``torch._weight_int4pack_mm``'s, before its weight conversion: (the
+    codes as ``(N, K/2)`` uint8 with the even k in the high nibble, the
+    layout ``torch._convert_weight_to_int4pack`` takes; ``qScaleAndZeros
+    (G, N, 2)`` bf16 holding s and (8 - z) s; the group's rows)."""
+    import torch
+    from repro_torch.kernels import streamed_matmul as sm
+    q = sm.unpack_int4(packed).t()
+    codes = (q[:, 0::2] << 4) | q[:, 1::2]
+    s = scales.to(torch.float32)
+    sz = torch.stack([s, (8.0 - zeros.to(torch.float32)) * s], dim=-1)
+    g = -(-2 * packed.shape[0] // scales.shape[0])
+    return codes.contiguous(), sz.to(torch.bfloat16).contiguous(), g
+
+
+def int4pack_unfit(K, N, g):
+    """Why ``torch._weight_int4pack_mm`` cannot take a (K, N) weight in
+    groups of g rows; None where it can."""
+    if g not in INT4PACK_GROUPS:
+        return f"groups of {g} rows, not one of {INT4PACK_GROUPS}"
+    if K % (16 * INT4PACK_INNER_K_TILES) or N % 8:
+        return (f"K = {K} not a multiple of {16 * INT4PACK_INNER_K_TILES} "
+                f"or N = {N} not of 8")
+    return None
+
+
 # K2 and K3 in bf16 run on the tensor cores with exact products (their
 # codes are integers that bf16 holds) and are held, besides TOL's 2e-2, to
 # a limit set by their own rounding. ref32 is the plain version before its
@@ -620,6 +664,33 @@ def quant_round_excess(out, ref32, T):
     a sound K2 / K3 in bf16."""
     lim = BF16_OUT * (ref32.abs() + T) + T + 1e-30
     return ((out.double() - ref32).abs() / lim).max().item()
+
+
+def library_yardstick(x, lib_qs, want, g):
+    """``torch._weight_int4pack_mm`` on ``x`` over the converted copies
+    ``lib_qs`` ((weight, qScaleAndZeros) pairs): its max |err| against K3's
+    plain version ``want`` and, within 2e-2, its time by events and on the
+    device. A disagreement is reported in ``library_note`` and leaves the
+    times null: they would be another function's (the yardstick gates
+    nothing in the port)."""
+    import torch
+
+    def op(x, wp, sz):
+        return torch._weight_int4pack_mm(x, wp, g, sz)
+    res = {"library_ms": None, "library_device_ms": None,
+           "library_max_abs_err": None, "library_note": None}
+    try:
+        res["library_max_abs_err"] = check_close(
+            "torch._weight_int4pack_mm", op(x, *lib_qs[0]), want, "bfloat16")
+    except AssertionError as e:
+        res["library_note"] = f"disagrees with K3's plain version: {e}"
+        log(f"K3's yardstick at ({x.shape[0]},{x.shape[1]}): "
+            f"{res['library_note']}; its time is not kept")
+        return res
+    args = [(x,) + qq for qq in lib_qs]
+    res["library_ms"] = time_ms(op, args)
+    res["library_device_ms"] = device_ms(op, args, None)
+    return res
 
 
 def quant_kernel_phase():
@@ -708,6 +779,20 @@ def quant_kernel_phase():
     log("int8 one group (expert_quant) at the expert shapes within "
         f"tolerance; bf16 within the rounding limit (max excess "
         f"{out['int8']['round_excess']:.3f} <= 1)")
+    # K3's yardstick where this torch has its CUDA kernel; K2 has none
+    lib4 = {"op": "torch._weight_int4pack_mm",
+            "inner_k_tiles": INT4PACK_INNER_K_TILES,
+            "cuda_kernel": torch._C._dispatch_has_kernel_for_dispatch_key(
+                "aten::_weight_int4pack_mm", "CUDA"), "reason": None}
+    if not lib4["cuda_kernel"]:
+        lib4["reason"] = (f"torch {torch.__version__} has no CUDA kernel "
+                          "for aten::_weight_int4pack_mm")
+        log(f"K3's yardstick: {lib4['reason']}; K3's library_ms is null")
+    out["int4"]["library"] = lib4
+    out["int8"]["library"] = {
+        "op": None, "reason": "torch._weight_int8pack_mm takes one scale "
+        "per column; K2 keeps one per 512-row group, so the op computes "
+        "K2's function only where K <= 512"}
     # the main path's, qwen30b-a3b's expert and qwen3-14b's FFN shapes,
     # bf16, timed
     for (K, N, Ms) in ((896, 4864, (1, 4, 64, 256)),
@@ -725,6 +810,15 @@ def quant_kernel_phase():
             wd = deq[mode](*q).to(torch.bfloat16)   # context only
             n_bf16 = max(2, -(-2 * L2_BYTES // (K * N * 2)))
             wds = [wd] + [wd.clone() for _ in range(n_bf16 - 1)]
+            # the yardstick's operands, converted once for every copy
+            lib_qs, lib_why = [], out[mode]["library"]["reason"]
+            if mode == "int4" and lib_why is None:
+                g = -(-K // q[1].shape[0])
+                lib_why = int4pack_unfit(K, N, g)
+                if lib_why is None:
+                    lib_qs = [(torch._convert_weight_to_int4pack(
+                        c, INT4PACK_INNER_K_TILES), sz) for c, sz, _ in
+                        (int4pack_operands(*qq) for qq in qs)]
             for M in Ms:
                 x = torch.randn((M, K), generator=gen, device=dev) \
                     .to(torch.bfloat16)
@@ -739,20 +833,32 @@ def quant_kernel_phase():
                 plain_ms = time_ms(plain[mode], args)
                 ctx_ms = time_ms(torch.matmul, [(x, d) for d in wds])
                 b_ms, b_by = bound(M, K, N, 2, w_bytes=w_bytes)
+                lib = {"library_ms": None, "library_note": lib_why}
+                if lib_qs:
+                    lib = library_yardstick(x, lib_qs, plain[mode](x, *q), g)
                 out[mode]["shapes"].append(
                     {"M": M, "K": K, "N": N, "dtype": "bfloat16",
                      "w_bytes": w_bytes, "max_abs_err": e,
                      "round_excess": ex, "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": plain_ms, "library_ms": None,
+                     "plain_ms": plain_ms, **lib,
                      "bf16_matmul_context_ms": ctx_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "split": list(sm.split_plan(K, N))})
+                if lib["library_ms"] is not None:
+                    lib_err = lib["library_max_abs_err"]
+                    lib_txt = (f"; {lib4['op']} {lib['library_ms']:.4f} ms "
+                               f"(device {fmt_ms(lib['library_device_ms'])}"
+                               f"), max |err| {lib_err:.3e} against the "
+                               "plain version (within rtol = atol = 2e-2)")
+                else:
+                    lib_txt = f"; no library time: {lib['library_note']}"
                 log(f"{mode} ({M},{K})@({K},{N}) bf16 x: kernel {ms:.4f} "
                     f"ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} "
                     f"ms, bound {b_ms:.4f} ms ({b_by}, {w_bytes} weight "
                     f"bytes), max |err| {e:.3e}, {ex:.3f}x the rounding "
-                    f"limit; context, not the same function: torch.matmul "
-                    f"on the dequantised bf16 weight {ctx_ms:.4f} ms")
-            del qs, wds, wd
+                    f"limit{lib_txt}; context, not the same function: "
+                    f"torch.matmul on the dequantised bf16 weight "
+                    f"{ctx_ms:.4f} ms")
+            del qs, wds, wd, lib_qs
         del w
         free_cuda()
     # the rounding limit has teeth: the kernel fed x with one group's K
@@ -5786,7 +5892,8 @@ def main() -> int:
             "launches_by_variant": main["quant"][mode]["variants"],
             "check_launches_by_variant": qkern[mode]["variant_launches"],
             "round_excess": qkern[mode]["round_excess"],
-            "planted_faults": qkern[mode]["faults"]})
+            "planted_faults": qkern[mode]["faults"],
+            "library": qkern[mode]["library"]})
     kernels[-1].update({
         "completes": "the forward K4 (flash_attention.py:104), whose "
                      "Pallas kernel has no backward: the reference "

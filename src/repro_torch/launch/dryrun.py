@@ -208,24 +208,30 @@ def run_cell(arch, shape_name, save=True, device=None):
     return result
 
 
-def _run_one(arch, shape_name):
+def _run_one(module, out_dir, arch, shape_name, stdout_tail=4000):
+    """``python -m module --arch A --shape S`` in a subprocess of its own,
+    under ``CELL_TIMEOUT_S``; a failure or a hang writes
+    ``out_dir/<arch>__<shape>.FAILED`` with the tail of the child's stdout
+    (its last ``stdout_tail`` characters) and stderr. Returns (tag, ok,
+    the child's last line, or the tag where it printed none). The dry-run
+    and the probe sweep through it."""
     tag = f"{arch}__{shape_name}"
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape_name]
+    cmd = [sys.executable, "-m", module, "--arch", arch, "--shape",
+           shape_name]
     src = str(Path(__file__).resolve().parents[2])
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (src, os.environ.get("PYTHONPATH")) if p)}
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, env=env,
                            timeout=CELL_TIMEOUT_S)
-        ok, log = r.returncode == 0, r.stdout[-4000:] + "\n" + r.stderr[-8000:]
+        ok = r.returncode == 0
+        log = r.stdout[-stdout_tail:] + "\n" + r.stderr[-8000:]
         line = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else tag
     except subprocess.TimeoutExpired:
         ok, log, line = False, f"timed out after {CELL_TIMEOUT_S} s", tag
     if not ok:
-        with open(RESULTS_DIR / f"{tag}.FAILED", "w") as f:
+        with open(Path(out_dir) / f"{tag}.FAILED", "w") as f:
             f.write(log)
-        line = f"[dryrun] FAIL {tag} (log: {tag}.FAILED)"
     return tag, ok, line
 
 
@@ -236,10 +242,12 @@ def sweep(only_failed=False, jobs=1):
     todo = [(a, s) for a, s in cells()
             if not (only_failed and (RESULTS_DIR / f"{a}__{s}.json").exists())]
     with ThreadPoolExecutor(max_workers=jobs) as pool:
-        results = list(pool.map(lambda c: _run_one(*c), todo))
+        results = list(pool.map(
+            lambda c: _run_one("repro_torch.launch.dryrun", RESULTS_DIR, *c),
+            todo))
     failures = [tag for tag, ok, line in results if not ok]
-    for _, _, line in results:
-        print(line)
+    for tag, ok, line in results:
+        print(line if ok else f"[dryrun] FAIL {tag} (log: {tag}.FAILED)")
     print(f"[dryrun] sweep done; {len(failures)} failures: {failures}")
     return failures
 

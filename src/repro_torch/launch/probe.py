@@ -15,7 +15,12 @@ the full-depth count exactly (kept as a fraction, so no rounding enters).
 The record gives the reference's ``*_fixed`` and ``*_per_layer`` fields
 for flops, bytes and collectives (0 on one card).
 
-Usage: python -m repro_torch.launch.probe --arch yi-9b --shape train_4k
+Usage:
+    python -m repro_torch.launch.probe --arch yi-9b --shape train_4k
+    python -m repro_torch.launch.probe --all            # every cell, each
+                                                        # in a subprocess
+    python -m repro_torch.launch.probe --all --only-failed   # cells with
+                                                             # no record
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ import sys
 import traceback
 from fractions import Fraction
 
+from repro_torch.config import cells
 from repro_torch.configs import get_config
-from repro_torch.launch.dryrun import RESULTS_DIR, count_cell
+from repro_torch.launch.dryrun import RESULTS_DIR, _run_one, count_cell
 
 PROBE_DIR = RESULTS_DIR.parent / "probe_torch"
 
@@ -78,11 +84,39 @@ def probe_cell(arch, shape_name, save=True, device=None, cfg=None):
     return out
 
 
-def main():
+def sweep(only_failed=False):
+    """Every cell of ``config.cells()`` probed in a subprocess of its own,
+    one after another (a failure or a hang stays in its cell, each under
+    the dry-run's ``CELL_TIMEOUT_S``); ``only_failed`` skips the cells
+    that have a record. A failure leaves ``<cell>.FAILED`` beside the
+    records. Returns the failed cells' tags."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    failures = []
+    for arch, shape_name in cells():
+        if only_failed and (PROBE_DIR / f"{arch}__{shape_name}.json").exists():
+            continue
+        tag, ok, line = _run_one("repro_torch.launch.probe", PROBE_DIR, arch,
+                                 shape_name, stdout_tail=3000)
+        if ok:
+            print(line)
+        else:
+            failures.append(tag)
+            print(f"[probe] FAIL {tag}")
+    print(f"[probe] sweep done; {len(failures)} failures: {failures}")
+    return failures
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", required=True)
-    args = ap.parse_args()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--only-failed", action="store_true")
+    args = ap.parse_args(argv)
+    if args.all:
+        sys.exit(1 if sweep(args.only_failed) else 0)
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape are required without --all")
     try:
         probe_cell(args.arch, args.shape)
     except Exception:

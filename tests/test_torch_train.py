@@ -367,6 +367,9 @@ def test_train_main_on_cpu(tmp_path):
                           "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
                           "--inject-fault", "3", "--device", "cpu"])
     kinds = [k for _, k, _ in drv.events]
+    # exact, though stragglers are wall-clock readings: the watch needs 5
+    # timed steps before it can log one, and only steps 0-2 are timed
+    # before the fault at 3, so none can come before the restart
     assert kinds[:2] == ["fault", "restart"] and drv.step == 5
     assert drv.events[1][0] == 2    # resumed from the step-2 checkpoint
     losses = [m["loss"] for m in drv.metrics_log]
