@@ -1,0 +1,2 @@
+"""Plain float32 PyTorch references of the configurations the benchmark
+runs. Nothing here imports the program or JAX."""
