@@ -1739,10 +1739,7 @@ def summarise(tag, run):
            "streamed_mb_by_dtype": {
                k: v / 1e6 for k, v in ex["streamed_bytes_by_dtype"].items()},
            "staged_mb": ex["staged_bytes"] / 1e6,
-           "copy_s_hidden": ex["copy_s_hidden"],
-           "copy_s_exposed": ex["copy_s_exposed"],
            "at_use_mb": ex["at_use_bytes"] / 1e6,
-           "at_use_s": ex["at_use_s"],
            "tiers": st["serving"]["tiers_used"],
            "plans": {t: sess.schedule.tiers[t].plan.name
                      for t in st["serving"]["tiers_used"]},
@@ -1763,10 +1760,8 @@ def summarise(tag, run):
     log(f"budget {tag}: TTFT {row['ttft_s']:.4f} s, decode "
         f"{row['decode_tps']:.2f} tok/s ({row['decode_step_ms']:.2f} ms per "
         f"step of {MAX_BATCH}), streamed {row['streamed_mb']:.1f} "
-        f"MB {by_dtype}, staged {row['staged_mb']:.1f} MB, copy hidden "
-        f"{row['copy_s_hidden']:.4f} s / exposed "
-        f"{row['copy_s_exposed']:.4f} s, at use {row['at_use_mb']:.1f} MB "
-        f"waited {row['at_use_s']:.4f} s, tiers {row['tiers']} "
+        f"MB {by_dtype}, staged {row['staged_mb']:.1f} MB, at use "
+        f"{row['at_use_mb']:.1f} MB, tiers {row['tiers']} "
         f"{row['plans']}, peak {row['peak_mb']:.1f} MB")
     if "expert_hit_rate" in row:
         log(f"  experts: hit rate {row['expert_hit_rate']:.4f}, demanded "

@@ -28,11 +28,11 @@ serves. Each round runs every mode once, in turn:
   cold expert fetched at use by the serving thread (the demand pool
   unused);
 - ``pipelined-issue``: pipelined, but a worker does not wait on the host
-  for the copies it issued: the compute stream alone waits for them (the
-  copy seconds then count issue time only).
+  for the copies it issued: the compute stream alone waits for them.
 
-Per run it prints decode tok/s (decode-only steps), TTFT, and the copy
-seconds hidden and exposed; the tokens of every run must be identical.
+Per run it prints decode tok/s (decode-only steps) and TTFT; the tokens
+of every run must be identical. Where the host waits in each mode is what
+``torch.profiler`` and the port's spans show (``core/trace.py``).
 The last line is one JSON object.
 """
 from __future__ import annotations
@@ -47,8 +47,9 @@ MODES = ("sync", "pipelined", "pipelined-yield", "pipelined-switch")
 MOE_MODES = MODES + ("pipelined-no-demand", "pipelined-issue")
 
 
-def _stage_no_wait(groups, device, stream):
-    """``prefetch.stage_groups`` without the host's wait for the copy."""
+def _stage_no_wait(groups, device, stream, span=None):
+    """``prefetch.stage_groups`` without the host's wait for the copy (and
+    untimed)."""
     import torch
     from repro_torch.core.prefetch import groups_to_device
     with torch.cuda.device(device), torch.cuda.stream(stream):
@@ -117,9 +118,7 @@ def run_modes(tag, cfg, params, db, system, budget, modes, n_rounds,
                                      "differ")
             rows.append({"model": tag, "mode": mode, "round": r,
                          **{k: row[k] for k in (
-                             "decode_tps", "decode_step_ms", "ttft_s",
-                             "copy_s_hidden", "copy_s_exposed",
-                             "at_use_s")}})
+                             "decode_tps", "decode_step_ms", "ttft_s")}})
             del run
             cs.free_cuda()
     cs.log(f"{tag}: tokens identical across every mode and round: True")

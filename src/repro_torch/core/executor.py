@@ -7,9 +7,14 @@ streamed ones are staged by a background ``PrefetchEngine`` from pinned
 host memory into a two-slot scratch double-buffer one sub-layer ahead of
 compute, so sub-layer i+1's host->device copy hides under sub-layer i's
 compute; CPU-assigned ones are copied synchronously at use and computed on
-the device, as the reference simulates them. Realised overlap (hidden vs
-exposed copy time) is recorded in ``ExecStats``. ``overlap=False`` is the
+the device, as the reference simulates them. ``overlap=False`` is the
 synchronous baseline: every streamed sub-layer is copied at use.
+
+Under ``torch.profiler`` each sub-layer is a ``sub.attn`` / ``sub.ffn``
+span, each host wait for weights a ``wait.weights`` span and each wait for
+a device result (an MoE route, a paged pass's positions) a
+``wait.device`` span (``core/trace.py``); ``ExecStats`` holds the byte
+counts.
 
 Embedding, final norm and unembedding live on the device for the whole run,
 outside the planned budget, as in the reference.
@@ -65,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine as eng
+from repro_torch.core import trace
 from repro_torch.core.costmodel import Placement
 from repro_torch.core.faults import (DemandTimeout, FaultPlan, RecoveryPolicy,
                                      WorkerLost)
@@ -88,12 +94,7 @@ class ExecStats:
     # meta["quant"]: "fp16", "int8" or "int4"; attention is always "fp16")
     streamed_bytes_by_dtype: dict = field(default_factory=dict)
     at_use_bytes: int = 0        # non-streamed (CPU-engine) at-use fetches
-    # host seconds those fetches blocked: the wait for the previous at-use
-    # sub-layer's compute plus the copy (not in copy_s_exposed)
-    at_use_s: float = 0.0
     staged_bytes: int = 0        # actual host->device bytes moved
-    copy_s_hidden: float = 0.0   # streamed copy time hidden under compute
-    copy_s_exposed: float = 0.0  # streamed copy time compute waited on
     prefetch_slots: int = 0      # realised scratch double-buffer depth
     boundary_hops: int = 0
     engine_calls: dict = field(default_factory=lambda: {"gpu": 0, "cpu": 0})
@@ -213,7 +214,6 @@ class PipelinedExecutor:
         # the always-on recovery policy
         self.faults = faults
         self.recovery = recovery if recovery is not None else RecoveryPolicy()
-        self._sync_exposed = 0.0
         self._sync_staged = 0
         # split params into per-sublayer host copies ("sysRAM"), pinned
         host = pin_host_tree(params, self.device)
@@ -291,7 +291,10 @@ class PipelinedExecutor:
         for name in to_pin:
             self._pin(new_pins[name])
             pinned_bytes += new_pins[name].sub.weight_bytes
+        sp = trace.begin("wait.device")
         self._synchronize()
+        if sp is not None:
+            trace.end(sp, what="rebind")
         self.schedule = schedule
         self._pinned_names = set(self._pinned)
         self._refresh_resident_expert_bytes()
@@ -368,24 +371,30 @@ class PipelinedExecutor:
         """``_fetch_sync``'s transfer: the device groups, not joined.
         ``account=False`` is the recovery fetch of a shard whose plan
         bytes the caller counts itself: it moves the bytes and counts
-        them staged, nowhere else."""
-        t_wait = time.perf_counter()
+        them staged, nowhere else. While tracing, the whole of it (the wait
+        for the previous at-use reader and the copy) is a ``wait.weights``
+        span with ``how="at_use"``, the copy a ``copy.h2d`` span."""
+        wait = trace.begin("wait.weights")
         if self._at_use_done is not None:
             self._at_use_done.synchronize()
             self._at_use_done = None
         groups = self._host_groups(placement.sub)
-        t0 = time.perf_counter()
-        dev, copied = stage_groups(groups, self.device, self._sync_stream,
-                                   ready=placement.sub.meta.get("ready"))
-        t1 = time.perf_counter()
         nbytes = groups_nbytes(groups)
+        copy = trace.begin("copy.h2d")
+        dev, copied = stage_groups(groups, self.device, self._sync_stream,
+                                   ready=placement.sub.meta.get("ready"),
+                                   span=copy)
+        if copy is not None:
+            trace.end(copy, sub=placement.sub.name, pool="at_use",
+                      bytes=nbytes)
+        if wait is not None:
+            trace.end(wait, sub=placement.sub.name, how="at_use",
+                      bytes=nbytes)
         self._sync_staged += nbytes
         if account and placement.streamed and placement.engine == "gpu":
             self._account_streamed(placement)
-            self._sync_exposed += t1 - t0
         elif account:
             self.stats.at_use_bytes += nbytes
-            self.stats.at_use_s += t1 - t_wait
         return hand_to_compute(dev, copied, self.device)
 
     def _weights_for(self, placement, streaming: set):
@@ -472,13 +481,9 @@ class PipelinedExecutor:
             self._at_use_done.record(torch.cuda.current_stream(self.device))
 
     def _sync_stats(self):
-        self.stats.copy_s_exposed = self._sync_exposed
         self.stats.staged_bytes = self._sync_staged
-        self.stats.copy_s_hidden = 0.0
         if self.prefetch is not None:
             ps = self.prefetch.stats
-            self.stats.copy_s_hidden = ps.copy_s_hidden
-            self.stats.copy_s_exposed += ps.copy_s_exposed
             self.stats.staged_bytes += ps.staged_bytes
             self.stats.prefetch_slots = ps.slots
             self.stats.fault_copy_retries = ps.copy_retries
@@ -530,8 +535,8 @@ class PipelinedExecutor:
         """Map a decode (``width`` 1) or verify pass's write blocks and
         bind the cache to the pass. Returns the demand bytes its restores
         need: the most evicted blocks of one layer, or 0."""
-        pos_h = pos_vec.cpu().numpy()
-        act_h = active.cpu().numpy()
+        pos_h = trace.to_host(pos_vec, "pages")
+        act_h = trace.to_host(active, "pages")
         faults = kv.prepare_verify({s: int(pos_h[s]) for s in
                                     range(len(act_h)) if act_h[s]}, width)
         self._active_kvcache = kv
@@ -589,29 +594,37 @@ class PipelinedExecutor:
                  cols=False):
         """Layer ``i``'s FFN sub-layer for the chunks ``xs`` (``valid``:
         each chunk's valid length, or None for no mask; ``cols``: norms
-        per column, a verify window). Returns (xs, engine)."""
+        per column, a verify window). Returns (xs, engine). While tracing,
+        a ``sub.ffn`` span with the weights' source (expert-granular: the
+        router's)."""
+        sp = trace.begin("sub.ffn")
         cfg = self.cfg
         if self.expert_granular:
             pf = by_name[f"L{i}/moe.router"]
             if prev_engine is not None and prev_engine != pf.engine:
                 self.stats.boundary_hops += 1
-            return self._moe_granular(i, xs, valid, by_name, streaming,
-                                      cols), pf.engine
-        pf = by_name[f"L{i}/moe" if cfg.moe is not None else f"L{i}/ffn"]
-        w, src = self._weights_for(pf, streaming)
-        prev_engine = self._note_engine(pf, prev_engine, calls=len(xs))
-        if cfg.moe is None:
-            xs = [eng.ffn_step(cfg, w, x, cols) for x in xs]
+            xs, src = self._moe_granular(i, xs, valid, by_name, streaming,
+                                         cols)
+            prev_engine = pf.engine
         else:
-            self._note_moe_rows(max(mlp_mod.capacity_of(
-                x.shape[0] * x.shape[1], cfg.moe) for x in xs))
-            if valid is None:
-                xs = [eng.moe_step(cfg, w, x, cols) for x in xs]
+            pf = by_name[f"L{i}/moe" if cfg.moe is not None
+                         else f"L{i}/ffn"]
+            w, src = self._weights_for(pf, streaming)
+            prev_engine = self._note_engine(pf, prev_engine, calls=len(xs))
+            if cfg.moe is None:
+                xs = [eng.ffn_step(cfg, w, x, cols) for x in xs]
             else:
-                xs = [eng.moe_prefill_step(cfg, w, x, vl)
-                      for x, vl in zip(xs, valid)]
-        del w
-        self._done_with(pf, src)
+                self._note_moe_rows(max(mlp_mod.capacity_of(
+                    x.shape[0] * x.shape[1], cfg.moe) for x in xs))
+                if valid is None:
+                    xs = [eng.moe_step(cfg, w, x, cols) for x in xs]
+                else:
+                    xs = [eng.moe_prefill_step(cfg, w, x, vl)
+                          for x, vl in zip(xs, valid)]
+            del w
+            self._done_with(pf, src)
+        if sp is not None:
+            trace.end(sp, layer=i, source=src)
         return xs, prev_engine
 
     def _layer_loop(self, x, by_name, streaming, attn_fn, cols=False):
@@ -623,12 +636,15 @@ class PipelinedExecutor:
         cfg = self.cfg
         prev_engine = None
         for i in range(cfg.n_layers):
+            sp = trace.begin("sub.attn")
             pa = by_name[f"L{i}/attn"]
             w, src = self._weights_for(pa, streaming)
             prev_engine = self._note_engine(pa, prev_engine)
             x = attn_fn(w, x, i)
             del w
             self._done_with(pa, src)
+            if sp is not None:
+                trace.end(sp, layer=i, source=src)
             (x,), prev_engine = self._ffn_sub(i, [x], None, by_name,
                                               streaming, prev_engine, cols)
         return x
@@ -706,7 +722,8 @@ class PipelinedExecutor:
         link once per prompt and computes every chunk's rows while it is
         resident. The pinned experts compute first, each chunk's routed
         ones, while the cold copies fly. Padded positions (``valid``) carry
-        the id E and enter neither the demanded set nor the EMA."""
+        the id E and enter neither the demanded set nor the EMA. Returns
+        (xs, the router's source)."""
         E = self.cfg.moe.n_experts
         r_pl = by_name[f"L{layer}/moe.router"]
         w_r, src = self._weights_for(r_pl, streaming)
@@ -718,7 +735,7 @@ class PipelinedExecutor:
             else:
                 disp, aux, idx = eng.moe_route_prefill_step(
                     self.cfg, w_r, x, valid[c])
-            idx_host = idx.cpu().numpy()
+            idx_host = trace.to_host(idx, "route")
             idx_host = idx_host[idx_host < E]
             self._record_routing(layer, idx_host)
             ids = {int(e) for e in np.unique(idx_host)}
@@ -738,7 +755,7 @@ class PipelinedExecutor:
                 disp, out_buf)
         self._compute_cold_experts(cold, streamed_cold, jobs)
         return [eng.moe_combine_step(x, out_buf, aux)
-                for x, (_, _, out_buf), aux in zip(xs, jobs, routed_aux)]
+                for x, (_, _, out_buf), aux in zip(xs, jobs, routed_aux)], src
 
     # ------------------------------------------------------------ forward
     def _run_chunk(self, tokens, kv, pos: int):
@@ -969,7 +986,7 @@ class PipelinedExecutor:
         rows, pos0, page_demand = None, 0, 0
         if paged:
             rows = [slot] if slot is not None else list(range(B))
-            tok_np = tokens.cpu().numpy()
+            tok_np = trace.to_host(tokens, "pages")
             if B == 1:
                 pos0 = kv.prefix_attach(rows[0], tok_np[0])
             faults = kv.prepare_prefill([(r, T, pos0) for r in rows])
@@ -1056,6 +1073,7 @@ class PipelinedExecutor:
             valid = [chunk if c < C - 1 else tail for c in range(C)]
             prev_engine = None
             for i in range(cfg.n_layers):
+                sp = trace.begin("sub.attn")
                 pa = by_name[f"L{i}/attn"]
                 w, src = self._weights_for(pa, streaming)
                 prev_engine = self._note_engine(pa, prev_engine, calls=C)
@@ -1079,6 +1097,8 @@ class PipelinedExecutor:
                             valid[c])
                 del w
                 self._done_with(pa, src)
+                if sp is not None:
+                    trace.end(sp, layer=i, source=src)
                 xs, prev_engine = self._ffn_sub(i, xs, valid, by_name,
                                                 streaming, prev_engine)
             # final logits from the last VALID position only
@@ -1092,8 +1112,7 @@ class PipelinedExecutor:
 
     def _prefill_snapshot(self):
         s = self.stats
-        return (s.streamed_bytes, s.copy_s_hidden, s.copy_s_exposed,
-                s.prefill_passes, s.demanded_expert_bytes,
+        return (s.streamed_bytes, s.prefill_passes, s.demanded_expert_bytes,
                 s.demanded_page_bytes)
 
     def _record_prefill(self, mode, chunks, before, ring_bytes, tokens=0,
@@ -1107,12 +1126,10 @@ class PipelinedExecutor:
             "tokens": tokens,
             "prefix_tokens": prefix_tokens,
             "act_ring_bytes": ring_bytes,
-            "passes": s.prefill_passes - before[3],
+            "passes": s.prefill_passes - before[1],
             "streamed_bytes": s.streamed_bytes - before[0],
-            "demanded_expert_bytes": s.demanded_expert_bytes - before[4],
-            "copy_s_hidden": s.copy_s_hidden - before[1],
-            "copy_s_exposed": s.copy_s_exposed - before[2],
-            "demanded_page_bytes": s.demanded_page_bytes - before[5],
+            "demanded_expert_bytes": s.demanded_expert_bytes - before[2],
+            "demanded_page_bytes": s.demanded_page_bytes - before[3],
         })
 
     def decode(self, last_tokens, kv, pos: int, steps=8):

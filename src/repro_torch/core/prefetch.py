@@ -14,8 +14,10 @@ scratch double-buffer. The reference simulated the link with
 - slot occupancy is bounded by a semaphore sized from the schedule's
   scratch (2 slots when it fits a double-buffer of the largest streamed
   sub-layer, else 1);
-- ``acquire(name)`` blocks until that sub-layer's copy has landed; the wait
-  is the *exposed* copy time and ``copy_s - exposed`` the *hidden* time.
+- ``acquire(name)`` blocks until that sub-layer's copy has landed (a
+  ``wait.weights`` span while tracing, ``core/trace.py``; each copy is a
+  ``copy.h2d`` span with its time on the card, and the worker's wait for
+  a free slot a ``prefetch.slot_wait`` span).
   The compute stream then waits on the copy's event, and every staged
   tensor is marked as used by the compute stream (``record_stream``), so
   the caching allocator cannot hand its memory to the next copy while
@@ -90,13 +92,13 @@ failures go through recovery.
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.faults import (DemandTimeout, FaultError, FaultPlan,
                                      RecoveryPolicy, WorkerLost)
 from repro_torch.models.common import tree_leaves, tree_map, tree_nbytes
@@ -137,8 +139,6 @@ def drop_traceback(exc: BaseException):
 
 @dataclass
 class PrefetchStats:
-    copy_s_hidden: float = 0.0   # copy time overlapped under compute
-    copy_s_exposed: float = 0.0  # copy time the consumer actually waited
     staged_bytes: int = 0        # actual bytes moved host->device
     staged_sublayers: int = 0
     slots: int = 0               # realised double-buffer depth (0: no session)
@@ -150,14 +150,17 @@ class PrefetchStats:
     abandoned: int = 0           # entries dropped past their deadline
 
 
+# a pool's weights as ``wait.weights`` names how they came
+_HOW = {"static": "streamed", "demand": "demand"}
+
+
 class _Staged:
-    __slots__ = ("event", "tree", "copy_s", "error", "copied", "pool",
-                 "abandoned", "holds_slot", "slot")
+    __slots__ = ("event", "tree", "error", "copied", "pool", "abandoned",
+                 "holds_slot", "slot")
 
     def __init__(self, pool: str = "static"):
         self.event = threading.Event()   # set once the copy has landed
         self.tree = None
-        self.copy_s = 0.0
         self.error: Optional[BaseException] = None
         self.copied = None               # CUDA event recorded after the copy
         self.pool = pool                 # "static" or "demand"
@@ -224,20 +227,42 @@ def groups_to_device(groups, device, non_blocking=False):
             for g in groups]
 
 
-def stage_groups(groups, device, stream, ready=None):
+def _timed_start(stream, span):
+    """A timing CUDA event recorded on ``stream`` now, for ``span``'s
+    ``device_ns``: after the stream's waits, so waiting is not copy
+    time. None without a span."""
+    if span is None:
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    return start
+
+
+def _copied_event(stream, span, start):
+    """The CUDA event after a copy on ``stream``; timed against ``start``
+    for ``span`` while tracing."""
+    copied = torch.cuda.Event(enable_timing=span is not None)
+    copied.record(stream)
+    if span is not None:
+        trace.device_time(span, start, copied)
+    return copied
+
+
+def stage_groups(groups, device, stream, ready=None, span=None):
     """Copy a list of host weight trees to ``device`` on ``stream``
     (``groups_to_device``) and wait for it on the calling thread only.
     ``ready``: a CUDA event the copy must follow on the card (a paged-KV
-    block's write-back into the host memory it reads). Returns (device
-    groups, CUDA event or None)."""
+    block's write-back into the host memory it reads). ``span``: the
+    open ``copy.h2d`` span that gets the copy's time on the card. Returns
+    (device groups, CUDA event or None)."""
     if device.type != "cuda":
         return groups_to_device(groups, device), None
     with torch.cuda.device(device), torch.cuda.stream(stream):
         if ready is not None:
             stream.wait_event(ready)
+        start = _timed_start(stream, span)
         dev = groups_to_device(groups, device, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record(stream)
+        copied = _copied_event(stream, span, start)
     copied.synchronize()
     return dev, copied
 
@@ -384,18 +409,22 @@ class PrefetchEngine:
 
     def _stage_one(self, pl, st: _Staged):
         st.holds_slot = True
+        sp = trace.begin("copy.h2d")
+        nbytes = 0
         try:
-            t0 = time.perf_counter()
             host, (st.tree, st.copied) = self._copy_with_retries(
                 pl, "prefetch.copy",
-                lambda h: stage_groups(h, self.device, self._stream))
-            st.copy_s = time.perf_counter() - t0
+                lambda h: stage_groups(h, self.device, self._stream,
+                                       span=sp))
+            nbytes = groups_nbytes(host)
             with self._lock:
-                self.stats.staged_bytes += groups_nbytes(host)
+                self.stats.staged_bytes += nbytes
                 self.stats.staged_sublayers += 1
         except BaseException as e:   # surfaced to the consumer on acquire
             st.error = e
         finally:
+            if sp is not None:
+                trace.end(sp, sub=pl.sub.name, pool="static", bytes=nbytes)
             with self._lock:
                 st.event.set()
                 if st.abandoned:   # the consumer dropped it meanwhile
@@ -405,9 +434,14 @@ class PrefetchEngine:
     def _take_slot(self):
         """Block for a free static slot; once the slot's last reader has
         run on the card, it may be staged into."""
-        self._sem.acquire()
-        if self._freed:
-            self._freed.popleft().synchronize()
+        sp = trace.begin("prefetch.slot_wait")
+        try:
+            self._sem.acquire()
+            if self._freed:
+                self._freed.popleft().synchronize()
+        finally:
+            if sp is not None:
+                trace.end(sp)
 
     def _free_slot(self, done):
         if done is not None:
@@ -481,9 +515,9 @@ class PrefetchEngine:
 
     def _issue_demands(self):
         """Copy queued demand entries, in request order, into free slots.
-        The host does not wait for the copies (``copy_s`` stays 0). Each
-        entry fires ``demand.worker`` before it is staged; a crash there
-        kills the pool (``_demand_died``) and is not raised."""
+        The host does not wait for the copies. Each entry fires
+        ``demand.worker`` before it is staged; a crash there kills the
+        pool (``_demand_died``) and is not raised."""
         while self._demand_q and self._demand_free:
             pl, st = self._demand_q.popleft()
             if self.faults is not None:
@@ -498,23 +532,28 @@ class PrefetchEngine:
             ready = getattr(pl.sub, "meta", {}).get("ready")
             with self._lock:
                 self.stats.demanded_sublayers += 1
+            sp = trace.begin("copy.h2d")
+            nbytes = 0
             try:
                 host, (st.tree, st.copied) = self._copy_with_retries(
                     pl, "demand.copy",
-                    lambda h: self._stage_into_slot(h, st.slot, ready))
+                    lambda h: self._stage_into_slot(h, st.slot, ready, sp))
+                nbytes = groups_nbytes(host)
                 with self._lock:
-                    self.stats.staged_bytes += groups_nbytes(host)
+                    self.stats.staged_bytes += nbytes
                     self.stats.staged_sublayers += 1
             except Exception as e:   # surfaced to the consumer on acquire
                 st.error = e
+            if sp is not None:
+                trace.end(sp, sub=pl.sub.name, pool="demand", bytes=nbytes)
             st.event.set()
 
-    def _stage_into_slot(self, groups, slot, ready=None):
+    def _stage_into_slot(self, groups, slot, ready=None, span=None):
         """``groups`` packed into demand slot ``slot``'s buffer on the
         demand stream, once the slot's last reader has run on the card
         (and ``ready``, if given, the host data's last write: a paged-KV
-        block's write-back). Returns (device groups, CUDA event after the
-        copy, or None)."""
+        block's write-back). ``span``: as ``stage_groups``'. Returns
+        (device groups, CUDA event after the copy, or None)."""
         if self.device.type != "cuda":
             return groups_to_device(groups, self.device), None
         stream, need = self._demand_stream, packed_nbytes(groups)
@@ -527,14 +566,14 @@ class PrefetchEngine:
                 stream.wait_event(self._demand_freed[slot])
             if ready is not None:
                 stream.wait_event(ready)
+            start = _timed_start(stream, span)
             dev, offset = [], 0
             for g in groups:
                 leaves = tree_leaves(g)
                 dev.append(_rebuild(g, iter(_pack(
                     leaves, self.device, True, buf, offset))))
                 offset += sum(_aligned(t) for t in leaves)
-            copied = torch.cuda.Event()
-            copied.record(stream)
+            copied = _copied_event(stream, span, start)
         return dev, copied
 
     def _free_demand_slot(self, st: _Staged, done):
@@ -557,8 +596,8 @@ class PrefetchEngine:
     # ------------------------------------------------------------ consume
     def acquire(self, name: str, timeout: Optional[float] = None):
         """Block until ``name``'s weights are staged; returns the device
-        groups. The wait is the exposed copy time; the rest was hidden.
-        With ``timeout``, a static entry not staged within it raises
+        groups. The wait is a ``wait.weights`` span while tracing. With
+        ``timeout``, a static entry not staged within it raises
         ``DemandTimeout``: the caller then ``abandon``s it (never
         releases) and fetches the shard itself. A demand entry has been
         copied (or its copy issued) once an entry before it freed a slot,
@@ -568,15 +607,15 @@ class PrefetchEngine:
             raise AssertionError(f"{name} acquired before a demand slot "
                                  "freed for it: release each demanded "
                                  "entry before acquiring the next")
-        t0 = time.perf_counter()
+        sp = trace.begin("wait.weights")
         staged = st.event.wait(timeout)
-        exposed = time.perf_counter() - t0
+        if sp is not None:
+            trace.end(sp, sub=name, how=_HOW[st.pool],
+                      bytes=groups_nbytes(st.tree) if st.tree else 0)
         if not staged:
             raise DemandTimeout(f"{name} not staged within {timeout:.3f}s")
         if st.error is not None:
             raise st.error
-        self.stats.copy_s_exposed += exposed
-        self.stats.copy_s_hidden += max(st.copy_s - exposed, 0.0)
         return hand_to_compute(st.tree, st.copied, self.device)
 
     def release(self, name: str):

@@ -45,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.executor import PipelinedExecutor
 from repro_torch.core.faults import AllocationFault
 from repro_torch.core.kvpaged import PagedKVCache, PagePoolFull
@@ -268,7 +269,7 @@ class ContinuousBatcher:
             # is 0 (a re-plan turned it off) so a later re-enable finds
             # the prompt in place
             self.spec.prefill_slot(slot, req.prompt)
-        nxt = int(greedy_token(logits[0, -1]))
+        nxt = int(trace.to_host(greedy_token(logits[0, -1]), "first_token"))
         req.generated.append(nxt)
         req.first_token_at = time.perf_counter()
         req.pos = T
@@ -285,24 +286,34 @@ class ContinuousBatcher:
         the session one rung down the ladder and re-runs the prefill,
         after unmapping the pages the failed attempt attached. Any other
         error fails this request alone; a ``ValueError`` (a contract
-        violation) propagates."""
-        while True:
-            try:
-                if self.ex.faults is not None:
-                    self.ex.faults.check("serving.request", key=str(req.rid))
-                self._prefill_slot(slot, req)
-                return
-            except (AllocationFault, PagePoolFull) as e:
-                if self._paged:
-                    self.kv.free_slot(slot)
-                self._degrade_or_raise(e)
-                drop_traceback(e)
-            except ValueError:
-                raise
-            except Exception as e:
-                self._fail_slot(slot, e)
-                drop_traceback(e)
-                return
+        violation) propagates. While tracing, a ``serve.admit`` span with
+        the time since ``submit`` as ``queued_ns``."""
+        sp = trace.begin("serve.admit")
+        queued_ns = 0 if sp is None else \
+            int((time.perf_counter() - req.submitted_at) * 1e9)
+        try:
+            while True:
+                try:
+                    if self.ex.faults is not None:
+                        self.ex.faults.check("serving.request",
+                                             key=str(req.rid))
+                    self._prefill_slot(slot, req)
+                    return
+                except (AllocationFault, PagePoolFull) as e:
+                    if self._paged:
+                        self.kv.free_slot(slot)
+                    self._degrade_or_raise(e)
+                    drop_traceback(e)
+                except ValueError:
+                    raise
+                except Exception as e:
+                    self._fail_slot(slot, e)
+                    drop_traceback(e)
+                    return
+        finally:
+            if sp is not None:
+                trace.end(sp, rid=req.rid, prompt_tokens=len(req.prompt),
+                          queued_ns=queued_ns)
 
     def _fail_slot(self, slot: int, exc: Exception):
         """Fail one in-flight request: record the error, free its slot and
@@ -348,12 +359,21 @@ class ContinuousBatcher:
             return
         before = self.ex.stats.streamed_bytes
         moved_before = self.ex.stats.staged_bytes
-        if self.spec_k > 0:
-            self._decode_spec(active)
-        elif self.fused:
-            self._decode_fused(active)
-        else:
-            self._decode_per_slot(active)
+        sp = trace.begin("serve.decode")
+        try:
+            if self.spec_k > 0:
+                mode = "spec"
+                self._decode_spec(active)
+            elif self.fused:
+                mode = "fused"
+                self._decode_fused(active)
+            else:
+                mode = "per_slot"
+                self._decode_per_slot(active)
+        finally:
+            if sp is not None:
+                trace.end(sp, n_active=len(active), mode=mode,
+                          tier=self.tier_log[-1])
         self.iter_streamed_bytes.append(self.ex.stats.streamed_bytes - before)
         self.iter_moved_bytes.append(self.ex.stats.staged_bytes
                                      - moved_before)
@@ -379,7 +399,7 @@ class ContinuousBatcher:
         tokens, pos_t, mask_t = self._device_inputs(pos_vec, mask)
         logits, self.kv = self.ex._run_decode(tokens, self.kv, pos_t, mask_t,
                                               n_active=len(active))
-        nxt = greedy_token(logits[:, -1]).cpu().numpy()
+        nxt = trace.to_host(greedy_token(logits[:, -1]), "tokens")
         for i in active:
             self._advance_guard(i, int(nxt[i]))
 
@@ -432,7 +452,7 @@ class ContinuousBatcher:
             torch.as_tensor(tokens).to(dev), self.kv,
             torch.as_tensor(pos_vec).to(dev), torch.as_tensor(mask).to(dev),
             n_active=len(active))
-        targets = greedy_token(logits).cpu().numpy()       # (B, W)
+        targets = trace.to_host(greedy_token(logits), "tokens")   # (B, W)
         keep_pos = np.zeros((B,), np.int32)
         roll_mask = np.zeros((B,), bool)
         st = self.ex.stats
@@ -481,7 +501,8 @@ class ContinuousBatcher:
             tokens, pos_t, mask_t = self._device_inputs(pos_vec, mask)
             logits, self.kv = self.ex._run_decode(tokens, self.kv, pos_t,
                                                   mask_t, n_active=1)
-            self._advance_guard(i, int(greedy_token(logits[i, -1])))
+            self._advance_guard(i, int(trace.to_host(
+                greedy_token(logits[i, -1]), "tokens")))
 
     def _advance_guard(self, slot: int, token: int):
         """Commit one slot's token under per-request isolation: an error
@@ -526,21 +547,30 @@ class ContinuousBatcher:
         loop over this, bit-identically."""
         self._events = []
         t0 = time.perf_counter()
-        if self._queue_aware:
-            self._apply_queue_hints(admitting=True)
-        self._admit(self.pending)
-        if self._queue_aware:
-            self._apply_queue_hints(admitting=False)
-        while True:
-            try:
-                self._decode_iteration()
-                break
-            except (AllocationFault, PagePoolFull) as e:
-                # degrade one rung and re-run the iteration: the failed
-                # attempt aborted at its pass entry, before any KV write,
-                # and the re-run writes the same tokens at the same places
-                self._degrade_or_raise(e)
-                drop_traceback(e)
+        sp = trace.begin("serve.step")
+        queued = len(self.pending)
+        try:
+            if self._queue_aware:
+                self._apply_queue_hints(admitting=True)
+            self._admit(self.pending)
+            if self._queue_aware:
+                self._apply_queue_hints(admitting=False)
+            while True:
+                try:
+                    self._decode_iteration()
+                    break
+                except (AllocationFault, PagePoolFull) as e:
+                    # degrade one rung and re-run the iteration: the failed
+                    # attempt aborted at its pass entry, before any KV
+                    # write, and the re-run writes the same tokens at the
+                    # same places
+                    self._degrade_or_raise(e)
+                    drop_traceback(e)
+        finally:
+            if sp is not None:
+                trace.end(sp, admitted=queued - len(self.pending),
+                          n_active=sum(1 for r in self.slots
+                                       if r is not None))
         self.iterations += 1
         if self._session is not None and self.ex.stats.degraded_sync:
             # the worker watchdog parked the executor on the sync path:

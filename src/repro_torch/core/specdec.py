@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.models.common import greedy_token
 
 
@@ -77,7 +78,8 @@ class SpecDecoder:
                                                   act, n_active=n_active)
             cur = greedy_token(logits[:, -1:])
             drafts.append(cur[:, 0])
-        return torch.stack(drafts, dim=1).cpu().numpy().astype(np.int32)
+        return trace.to_host(torch.stack(drafts, dim=1),
+                             "draft").astype(np.int32)
 
     def stats_dict(self) -> dict:
         """Draft-side counters (every streamed-byte entry stays 0: the

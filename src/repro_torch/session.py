@@ -572,19 +572,12 @@ class Session:
                 "streamed_bytes_by_dtype": dict(ex.streamed_bytes_by_dtype),
                 "staged_bytes": ex.staged_bytes,
                 "engine_calls": dict(ex.engine_calls),
-                "copy_s_hidden": ex.copy_s_hidden,
-                "copy_s_exposed": ex.copy_s_exposed,
                 "at_use_bytes": ex.at_use_bytes,
-                "at_use_s": ex.at_use_s,
                 "prefill_passes": ex.prefill_passes,
                 "prefills": len(pf),
                 "prefill_streamed_bytes_per_prompt": (
                     float(np.mean([p["streamed_bytes"] for p in pf]))
                     if pf else 0.0),
-                "prefill_copy_s_hidden": sum(p["copy_s_hidden"]
-                                             for p in pf),
-                "prefill_copy_s_exposed": sum(p["copy_s_exposed"]
-                                              for p in pf),
                 "prefill_stats": list(pf),
                 "rebinds": ex.rebinds,
                 "rebind_pinned_bytes": ex.rebind_pinned_bytes,

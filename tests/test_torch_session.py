@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import repro
 from repro.configs import get_smoke_config as jax_smoke
@@ -35,7 +36,7 @@ from repro.core.serving import Request as JRequest
 from repro.models import build_model as jax_build
 from repro_torch import Session
 from repro_torch.configs import get_smoke_config as torch_smoke
-from repro_torch.core import CLI2, InferenceSetting, run_install
+from repro_torch.core import CLI2, InferenceSetting, run_install, trace
 from repro_torch.core.executor import PipelinedExecutor
 from repro_torch.core.serving import Request
 from repro_torch.models.api import params_from_numpy
@@ -122,7 +123,9 @@ def _jax_serve(model, dbs, frac):
 def test_serve_matches_reference_fp32(models, dbs, frac):
     model = models["float32"]
     sess = _open(model, dbs, frac)
-    tokens = _serve(sess)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tokens = _serve(sess)
     st = sess.stats()["serving"]
     if frac == 0.1:
         assert st["streamed_bytes"] > 0
@@ -135,7 +138,11 @@ def test_serve_matches_reference_fp32(models, dbs, frac):
         assert st[key] == jst[key], key
     ex = sess.stats()["executor"]
     assert ex["at_use_bytes"] == jsess.executor.stats.at_use_bytes
-    assert (ex["at_use_s"] > 0) == (ex["at_use_bytes"] > 0)
+    # the serving thread waited for at-use weights exactly when some moved
+    at_use = [s for s in trace.spans() if s.name == "wait.weights"
+              and s.attrs["how"] == "at_use"]
+    assert (len(at_use) > 0) == (ex["at_use_bytes"] > 0)
+    assert sum(s.attrs["bytes"] for s in at_use) >= ex["at_use_bytes"]
 
 
 def _expected_by_dtype(ex):
