@@ -44,11 +44,13 @@ def _every_cell(metric):
 
 def make_bench(root):
     """A benchmark root in ``root``: BENCHMARK.json with a tiny dense and
-    a tiny MoE cell, their files, and the real metric readers."""
+    a tiny MoE cell, their files, and the real architectures and metric
+    readers."""
     bench = root / "bench"
     (bench / "configs").mkdir(parents=True)
     (bench / "traffic").mkdir()
-    shutil.copytree(HERE / "metrics", bench / "metrics")
+    for sub in ("arch", "metrics"):
+        shutil.copytree(HERE / sub, bench / sub)
     for name, cfg in (("tiny-dense", TINY_DENSE), ("tiny-moe", TINY_MOE)):
         (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     (bench / "traffic" / "tiny.json").write_text(json.dumps(TINY_MIX))

@@ -24,8 +24,6 @@ import numpy as np
 import torch
 
 from . import check, devtrace, spec
-from .roofline import work
-from .shapes import shapes_of
 from .traffic import ClosedLoop, warmup_requests
 from .weights import draw_weights
 
@@ -85,26 +83,6 @@ class Run:
     k1_calls: list           # (M, K, N, dtype) of K1 calls, traced runs
 
 
-def port_config(cfg: dict, s):
-    """The port's ``ModelConfig`` for configuration file ``cfg``."""
-    from repro_torch.config import ModelConfig, MoEConfig
-    moe = None
-    if s.moe:
-        # dropless: capacity factor E / k gives capacity = the chunk's
-        # tokens at every chunk size (models/mlp.py::capacity_of)
-        moe = MoEConfig(n_experts=s.n_experts, top_k=s.top_k,
-                        d_expert=s.d_ff,
-                        capacity_factor=s.n_experts / s.top_k,
-                        router_dtype="float32")
-    return ModelConfig(
-        name=s.name, family="moe" if s.moe else "dense",
-        n_layers=s.n_layers, d_model=s.d, n_heads=s.n_heads,
-        n_kv_heads=s.n_kv, d_ff=s.d_ff, vocab=s.vocab, head_dim=s.head_dim,
-        qk_norm=s.qk_norm, mlp="swiglu", pos="rope",
-        rope_theta=s.rope_theta, moe=moe, tie_embeddings=s.tie,
-        norm_eps=s.eps, dtype=s.dtype, source=cfg.get("source", ""))
-
-
 def _counters(batcher):
     st = batcher.ex.stats
     return {"streamed_bytes": st.streamed_bytes,
@@ -161,8 +139,9 @@ class _K1Log:
         self.module._k1 = self.orig
 
 
-def _step_flops(s, events, sent):
-    """Analytic operations of one step's delivered tokens."""
+def _step_flops(arch, s, events, sent):
+    """Analytic operations of one step's delivered tokens, counted by the
+    architecture's file."""
     flops = 0
     for ev in events:
         r = sent.get(ev.rid)
@@ -170,13 +149,13 @@ def _step_flops(s, events, sent):
             continue
         T = len(r.prompt)
         if ev.index == 0:
-            flops += work.prompt_flops(s, T)
+            flops += arch.prompt_flops(s, T)
         else:
-            flops += work.token_flops(s, T + ev.index) + work.head_flops(s)
+            flops += arch.token_flops(s, T + ev.index) + arch.head_flops(s)
     return flops
 
 
-def serve_window(batcher, loop: ClosedLoop, seconds: float, s,
+def serve_window(batcher, loop: ClosedLoop, seconds: float, arch, s,
                  on_start=None):
     """The measured window: every client keeps one request in flight;
     a finished request's client sends its next at once. Returns (sent
@@ -218,7 +197,7 @@ def serve_window(batcher, loop: ClosedLoop, seconds: float, s,
         steps.append(Step(t0, t1, len(admitted),
                           sum(len(sent[rid].prompt) for rid in admitted),
                           sum(1 for ev in events if ev.error is None),
-                          _step_flops(s, events, sent)))
+                          _step_flops(arch, s, events, sent)))
         if t1 >= end:
             return sent, steps, w0, end, t1
         for _ in range(finished):
@@ -289,6 +268,7 @@ def run_cell(root, workload, seed, seconds, trace=False, device=None,
     t_process = time.time() if t_process is None else t_process
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
     cell = spec.load_cell(root, workload, bench_dir)
+    arch = spec.architecture(cell.config, bench_dir)
     if device is None:
         if not torch.cuda.is_available():
             raise RunError("no CUDA device: torch.cuda.is_available() is "
@@ -305,11 +285,11 @@ def run_cell(root, workload, seed, seconds, trace=False, device=None,
     from repro_torch.core import InferenceSetting, build_graph
     from repro_torch.core import total_weight_bytes
 
-    s = shapes_of(cell.config, cell.config_name)
-    cfg = port_config(cell.config, s)
+    s = arch.shapes(cell.config, cell.config_name)
+    cfg = arch.port_config(cell.config, s)
     mix = cell.traffic
     t_start = time.time()
-    host = draw_weights(s, seed, device)
+    host = draw_weights(arch.leaves(s), seed, device)
     served = host
     if weight_quant != "fp16":
         cfg = cfg.replace(weight_quant=weight_quant)
@@ -348,8 +328,8 @@ def run_cell(root, workload, seed, seconds, trace=False, device=None,
             prof = devtrace.start()
             k1log = _K1Log()
 
-    sent, steps, w0, end, last = serve_window(batcher, loop, seconds, s,
-                                              on_start)
+    sent, steps, w0, end, last = serve_window(batcher, loop, seconds, arch,
+                                              s, on_start)
     if k1log is not None:
         k1log.close()
     counters = _window_counters(batcher, before)
@@ -381,8 +361,10 @@ def run_cell(root, workload, seed, seconds, trace=False, device=None,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    checks = compare(run, s, host, cell.config.get("check", {}), seed,
-                     device, log, fp8_control)
+    checks = compare(run, arch.Reference(s, host, device),
+                     cell.config.get("check", {}), seed, log,
+                     arch.Reference(s, host, device, "fp8")
+                     if fp8_control else None)
     checks.append(("off_dtype_weight_bytes", off_dtype, 0, "max"))
     reported = cell.per_layer if trace else cell.end_to_end
     metrics = {}
@@ -413,21 +395,20 @@ GAP_NUMBERS = {"max_logit_gap": lambda g: float(g.max()),
                "mean_logit_gap": lambda g: float(g.mean())}
 
 
-def compare(run, s, host, limits, seed, device, log, fp8_control=False):
+def compare(run, reference, limits, seed, log, control=None):
     """The compared numbers: the statistics of the served tokens' gaps
-    against the reference that the configuration limits, the requests
-    that failed, and that the window finished something to compare. With
-    ``fp8_control``, also the same statistics of the reference with fp8 layer
-    weights on the same sample."""
-    from .reference.qwen3 import Reference
+    against ``reference`` (the architecture's plain reference) that the
+    configuration limits, the requests that failed, and that the window
+    finished something to compare. With a ``control`` (the reference with
+    fp8 layer weights), also the same statistics of its tokens on the
+    same sample."""
     done = [r for r in run.requests
             if r.done_ns is not None and r.done_ns <= run.last_ns
             and r.error is None]
     sample = check.sample_requests(done, int(limits.get("sample_requests",
                                                           8)), seed)
     t0 = time.perf_counter()
-    g = check.served_gaps(Reference(s, host, device), sample) if sample \
-        else np.zeros(0)
+    g = check.served_gaps(reference, sample) if sample else np.zeros(0)
     log(f"reference: {len(sample)} of {len(done)} finished requests, "
         f"{len(g)} served tokens, {time.perf_counter() - t0:.1f} s")
     log(f"program gaps {json.dumps(check.summary(g))}")
@@ -439,9 +420,8 @@ def compare(run, s, host, limits, seed, device, log, fp8_control=False):
     out += [("failed_requests", sum(1 for r in run.requests
                                     if r.error is not None), 0, "max"),
             ("compared_tokens", len(g), 1, "min")]
-    if fp8_control and sample:
-        gc_ = check.control_gaps(Reference(s, host, device),
-                                 Reference(s, host, device, "fp8"), sample)
+    if control is not None and sample:
+        gc_ = check.control_gaps(reference, control, sample)
         log(f"control gaps {json.dumps(check.summary(gc_))}")
         out += [(f"control_{k}", GAP_NUMBERS[k](gc_), lim, "min")
                 for k, lim in limited.items()]

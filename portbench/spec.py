@@ -2,18 +2,23 @@
 
 ``BENCHMARK.json`` at the root of the checkout names every cell; a cell
 names its configuration (``configs/<config>.json``) and its traffic mix
-(``traffic/<traffic>.json``), and every metric is a reader in
-``metrics/<metric>.py``. Adding a cell, a mix, a configuration or a metric
-adds files and entries; no file here changes.
+(``traffic/<traffic>.json``), a configuration's ``model_type`` names its
+architecture (``arch/<model_type>.py``), and every metric is a reader in
+``metrics/<metric>.py``. Adding a cell, a mix, a configuration, an
+architecture or a metric adds files and entries; no file here changes.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+# a published model_type, and so the stem of a file name
+MODEL_TYPE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_\-]{0,63}")
 
 
 @dataclass
@@ -54,12 +59,41 @@ def load_cell(root: Path, workload: str, bench_dir: Path = HERE) -> Cell:
                 per_layer=_reported(spec["per_layer"], w["name"]))
 
 
+def _load(name: str, path: Path):
+    """The module of the file ``path``, loaded under ``name`` (and entered
+    in ``sys.modules``, where a dataclass looks its module up)."""
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
 def metric_reader(name: str, bench_dir: Path = HERE):
     """``read(run)`` of ``metrics/<name>.py``: the metric's value from a
     run's records, or ``None`` where the run holds nothing to read."""
-    path = Path(bench_dir) / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(f"portbench_metric_{name}",
+                 Path(bench_dir) / "metrics" / f"{name}.py").read
+
+
+def architecture(config: dict, bench_dir: Path = HERE):
+    """The module ``arch/<model_type>.py`` of the configuration file
+    ``config``. It gives ``shapes(cfg, name)`` (the sizes; the harness
+    reads ``name``, ``n_layers``, ``vocab``, ``dtype`` and ``moe``),
+    ``port_config(cfg, s)`` (the port's ``ModelConfig``), ``leaves(s)``
+    (the weights' ``(path, shape, dtype, std)`` in drawing order),
+    ``Reference`` (the plain float32 reference, ``Reference(s, host,
+    device, weights="f32" | "fp8")``) and ``prompt_flops(s, T)``,
+    ``token_flops(s, visible)`` and ``head_flops(s)`` (the analytic step
+    operations)."""
+    model_type = config.get("model_type")
+    path = Path(bench_dir) / "arch" / f"{model_type}.py"
+    if not isinstance(model_type, str) or \
+            not MODEL_TYPE.fullmatch(model_type) or not path.is_file():
+        raise ValueError(
+            f"no architecture for model_type {model_type!r}: add "
+            f"{Path(bench_dir).name}/arch/{model_type}.py with shapes, "
+            "port_config, leaves, Reference and the step operations "
+            "(README.md, Adding a configuration)")
+    return _load(f"portbench_arch_{model_type}", path)

@@ -17,7 +17,7 @@ from portbench.spec import HERE
 @pytest.mark.card
 def test_control_fails_and_program_passes(card, tmp_path):
     bench = tmp_path / "bench"
-    for sub in ("traffic", "metrics"):
+    for sub in ("arch", "traffic", "metrics"):
         shutil.copytree(HERE / sub, bench / sub)
     (bench / "configs").mkdir()
     cfg = json.loads((HERE / "configs" / "qwen3-14b-10of40.json")

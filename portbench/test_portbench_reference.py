@@ -5,11 +5,9 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import check
+from portbench import check, spec
 from portbench.conftest import TINY_DENSE, TINY_MOE
-from portbench.harness import port_config
 from portbench.reference.qwen3 import Reference
-from portbench.shapes import shapes_of
 from portbench.weights import draw_weights
 
 
@@ -18,10 +16,12 @@ from portbench.weights import draw_weights
 def test_reference_matches_the_port_f32(config):
     from repro_torch.models.transformer import forward
     c = dict(config, torch_dtype="float32")
-    s = shapes_of(c, "tiny")
-    host = draw_weights(s, 2 ** 33 + 5, "cpu")
+    arch = spec.architecture(c)
+    s = arch.shapes(c, "tiny")
+    host = draw_weights(arch.leaves(s), 2 ** 33 + 5, "cpu")
     toks = np.random.default_rng(0).integers(0, s.vocab, size=(2, 37))
-    z, _ = forward(host, port_config(c, s), {"tokens": torch.as_tensor(toks)})
+    z, _ = forward(host, arch.port_config(c, s),
+                   {"tokens": torch.as_tensor(toks)})
     ref = Reference(s, host, "cpu").logits([toks[0], toks[1]],
                                            [np.arange(37)] * 2)
     for i in range(2):
@@ -29,8 +29,9 @@ def test_reference_matches_the_port_f32(config):
 
 
 def test_control_computes_every_layer_product_in_fp8():
-    s = shapes_of(TINY_DENSE, "tiny")
-    host = draw_weights(s, 11, "cpu")
+    arch = spec.architecture(TINY_DENSE)
+    s = arch.shapes(TINY_DENSE, "tiny")
+    host = draw_weights(arch.leaves(s), 11, "cpu")
     ref, ctl = Reference(s, host, "cpu"), Reference(s, host, "cpu", "fp8")
     w, wc = ref._layer(0), ctl._layer(0)
     for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):

@@ -5,13 +5,18 @@ import json
 
 import pytest
 
+from portbench import spec
 from portbench.roofline import peaks, work
-from portbench.shapes import shapes_of
 from portbench.spec import HERE
 
-CONFIGS = {n: shapes_of(json.loads(
-    (HERE / "configs" / f"{n}.json").read_text()), n)
-    for n in ("qwen3-14b-10of40", "qwen3-30b-a3b-12of48")}
+
+def _shapes(name):
+    cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+    return spec.architecture(cfg).shapes(cfg, name)
+
+
+CONFIGS = {n: _shapes(n)
+           for n in ("qwen3-14b-10of40", "qwen3-30b-a3b-12of48")}
 
 
 def k1_shapes(s, M):
@@ -54,9 +59,9 @@ def test_decode_flops_match_the_count(name):
     (a count cannot read the routes); the rest is B logits rows."""
     from repro_torch.config import ShapeConfig
     from repro_torch.launch.dryrun import count_cell
-    from portbench.harness import port_config
     s = CONFIGS[name]
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+    port_config = spec.architecture(cfg).port_config
     B, S = 4, 1088
     counts = [count_cell(None, ShapeConfig("d", "decode", S, B),
                          device="cpu",
