@@ -11,6 +11,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 
+# a hybrid layer's mixer in ModelConfig.layer_pattern: Mamba-2, MLP,
+# attention
+LAYER_KINDS = ("M", "-", "*")
+
+
 @dataclass(frozen=True)
 class MoEConfig:
     n_experts: int
@@ -33,7 +38,7 @@ class ModelConfig:
     head_dim: Optional[int] = None  # None -> d_model // n_heads
     qk_norm: bool = False           # qwen3: rmsnorm on q,k per head
     qkv_bias: bool = False          # qwen2: bias on qkv projections
-    mlp: str = "swiglu"             # swiglu | gelu
+    mlp: str = "swiglu"             # swiglu | gelu | relu2
     pos: str = "rope"               # rope | mrope | sin | none
     rope_theta: float = 1_000_000.0
     moe: Optional[MoEConfig] = None
@@ -42,6 +47,14 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
+    # Mamba-2 groups: B and C per group, head h reads group h // (heads /
+    # groups), and the gated norm runs over each group's d_inner / groups
+    # channels (nemotron-h: 8); 1 is zamba2's shared B and C
+    ssm_groups: int = 1
+    ssm_conv_bias: bool = False
+    # hybrid with one mixer a layer (nemotron-h's hybrid_override_pattern):
+    # "M" Mamba-2, "-" MLP, "*" attention; "" is zamba2's layout
+    layer_pattern: str = ""
     # zamba2: one shared transformer block applied after every N ssm layers.
     shared_attn_every: int = 0
     # musicgen: number of EnCodec codebooks (parallel output heads).
@@ -79,6 +92,15 @@ class ModelConfig:
             raise ValueError(
                 "weight_quant already covers expert shards; combining it "
                 "with expert_quant is ambiguous — pick one")
+        if self.layer_pattern:
+            if self.family != "hybrid":
+                raise ValueError("layer_pattern belongs to the hybrid family")
+            if len(self.layer_pattern) != self.n_layers \
+                    or set(self.layer_pattern) - set(LAYER_KINDS):
+                raise ValueError(
+                    f"layer_pattern must give one of {LAYER_KINDS!r} for "
+                    f"each of the {self.n_layers} layers, got "
+                    f"{self.layer_pattern!r}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -114,6 +136,10 @@ class ModelConfig:
             else:
                 per_layer += ffn_dense
             total = self.n_layers * per_layer
+        elif self.layer_pattern:
+            per_kind = {"M": self._mamba_params(), "-": ffn_dense + d,
+                        "*": attn + d}
+            total = sum(per_kind[k] for k in self.layer_pattern)
         elif self.family == "hybrid":
             total = self.n_layers * self._mamba_params()
             if self.shared_attn_every:
@@ -131,10 +157,11 @@ class ModelConfig:
         return total + emb + out + d  # final norm
 
     def _mamba_params(self) -> int:
-        d, di, n = self.d_model, self.d_inner, self.ssm_state
+        d, di = self.d_model, self.d_inner
+        gn = self.ssm_groups * self.ssm_state   # B and C, per group
         h = self.n_ssm_heads
-        in_proj = d * (2 * di + 2 * n + h)   # x, z, B, C, dt
-        conv = self.ssm_conv * (di + 2 * n)
+        in_proj = d * (2 * di + 2 * gn + h)   # x, z, B, C, dt
+        conv = (self.ssm_conv + self.ssm_conv_bias) * (di + 2 * gn)
         out_proj = di * d
         return in_proj + conv + out_proj + 2 * h + d  # A, D, norm
 

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.mlp import _mm_dispatch, activate
 
@@ -223,6 +224,34 @@ def _ffn_streamed(cfg, p, h):
     else:
         hh = activate(cfg, None, _mm_dispatch(x2, p, "w_up"))
     return _mm_dispatch(hh, p, "w_down").reshape(B, T, d)
+
+
+# ------------------------------------------------------------ mamba
+def mamba_step(cfg, w, x, conv, ssm_state, valid_len=None, active=None):
+    """A Mamba-2 mixer layer of a patterned hybrid: x + mixer(rmsnorm(x)),
+    its in- and out-projections through K1 (``_mm_dispatch``).
+    w: {"mamba": the layer's leaves, "ln"}; x: (B, T, d); conv (B, K-1, C)
+    and ssm_state (B, H, P, N): this layer's state rows, read, then
+    written in place. A prefill chunk's positions at or past
+    ``valid_len`` (a padded tail) leave the state as it was
+    (``ssm.mamba_mix``); a decode step's rows whose ``active`` is False
+    keep theirs."""
+    B, T, d = x.shape
+    p = w["mamba"]
+    di, h = cfg.d_inner, cfg.n_ssm_heads
+    h2 = rmsnorm(x, w["ln"], cfg.norm_eps).reshape(B * T, d)
+    zxd = _mm_dispatch(h2, p, "w_in").reshape(B, T, -1)
+    z, xbc, dt_raw = torch.split(zxd, [di, zxd.shape[-1] - di - h, h],
+                                 dim=-1)
+    y, new = ssm_mod.mamba_mix(p, cfg, z, xbc, ssm_mod.mamba_dt(p, dt_raw),
+                               {"conv": conv, "ssm": ssm_state}, valid_len)
+    for old, upd in ((conv, new["conv"]), (ssm_state, new["ssm"])):
+        if active is not None:
+            keep = active.reshape((B,) + (1,) * (old.ndim - 1))
+            upd = torch.where(keep, upd.to(old.dtype), old)
+        old.copy_(upd)
+    out = _mm_dispatch(y.reshape(B * T, di), p, "w_out")
+    return x + out.reshape(B, T, d)
 
 
 # ------------------------------------------------------------ moe

@@ -1,5 +1,6 @@
 """Inference-phase executor (paper Step 3/4): run a planned schedule with
-pipelined copy-compute, dense and MoE decoders with stacked or paged KV.
+pipelined copy-compute, dense and MoE decoders with stacked or paged KV,
+and hybrids of one mixer a layer (``cfg.layer_pattern``) with stacked KV.
 
 Executes the model *sub-layer by sub-layer* following the Schedule's
 per-tier plan: pinned sub-layers use weights placed on the device once;
@@ -10,8 +11,17 @@ compute; CPU-assigned ones are copied synchronously at use and computed on
 the device, as the reference simulates them. ``overlap=False`` is the
 synchronous baseline: every streamed sub-layer is copied at use.
 
-Under ``torch.profiler`` each sub-layer is a ``sub.attn`` / ``sub.ffn``
-span, each host wait for weights a ``wait.weights`` span and each wait for
+A patterned hybrid (nemotron-h) runs one sub-layer a layer: a Mamba-2
+mixer, an MLP or an attention layer, each pinned, prefetched or copied at
+use under the plan like any other. Its cache holds the attention layers'
+KV and each Mamba-2 layer's per-slot conv and SSM state (``init_kv``);
+decode advances every slot's state in one pass and keeps the inactive
+slots' as they were, prefill carries a slot's state from chunk to chunk
+(a padded tail leaves it untouched), and the serving layer zeroes a
+slot's state when it admits a request (``reset_state``).
+
+Under ``torch.profiler`` each sub-layer is a ``sub.attn`` / ``sub.ffn`` /
+``sub.mamba`` span, each host wait for weights a ``wait.weights`` span and each wait for
 a device result (an MoE route, a paged pass's positions) a
 ``wait.device`` span (``core/trace.py``); ``ExecStats`` holds the byte
 counts.
@@ -84,6 +94,7 @@ from repro_torch.core.sublayer import SubLayer
 from repro_torch.device import resolve_device
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import greedy_token, tree_map
+from repro_torch.models.hybrid import pattern_index, pattern_layers
 from repro_torch.models.transformer import init_cache, layer_slice
 
 
@@ -154,6 +165,10 @@ class ExecStats:
     fault_sync_fallbacks: int = 0
     fault_alloc_failures: int = 0
     degraded_sync: bool = False
+    # patterned hybrids: the Mamba-2 layers' conv and SSM state on the
+    # device (``init_kv``), and the slots zeroed for an admission
+    ssm_state_bytes: int = 0
+    state_resets: int = 0
 
     @property
     def accept_rate(self) -> float:
@@ -178,7 +193,8 @@ def pin_host_tree(tree, device):
 
 
 class PipelinedExecutor:
-    """Dense / MoE decoder executor under a pipelined-sharding schedule."""
+    """Dense / MoE decoder and patterned-hybrid executor under a
+    pipelined-sharding schedule."""
 
     def __init__(self, cfg, params, schedule: Schedule, max_seq: int = 512,
                  overlap: bool = True, prefill_mode: str | None = None,
@@ -187,10 +203,10 @@ class PipelinedExecutor:
                  kv_pool_pages: int | None = None, device=None,
                  faults: FaultPlan | None = None,
                  recovery: RecoveryPolicy | None = None):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe") and not cfg.layer_pattern:
             raise NotImplementedError(
-                f"the port's executor runs dense and MoE decoders, not "
-                f"family={cfg.family!r}")
+                f"the port's executor runs dense and MoE decoders and "
+                f"hybrids of one mixer a layer, not family={cfg.family!r}")
         if kv_layout not in ("stacked", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
@@ -219,8 +235,15 @@ class PipelinedExecutor:
         host = pin_host_tree(params, self.device)
         self.host = {k: host[k] for k in ("embed", "final_norm", "unembed")
                      if k in host}
-        self.layer_params = [layer_slice(host["layers"], i)
-                             for i in range(cfg.n_layers)]
+        # each layer's index into its kind's stacks (weights, KV, state)
+        if cfg.layer_pattern:
+            self.layer_params = pattern_layers(host["layers"],
+                                               cfg.layer_pattern)
+            self._index = pattern_index(cfg.layer_pattern)
+        else:
+            self.layer_params = [layer_slice(host["layers"], i)
+                                 for i in range(cfg.n_layers)]
+            self._index = list(range(cfg.n_layers))
         # embed / final norm / output head live once on device (the paper
         # pins outputs last)
         self._embed_dev = self.host["embed"].to(self.device)
@@ -326,6 +349,8 @@ class PipelinedExecutor:
         lp = self.layer_params[sub.layer]
         if sub.kind == "attn":
             return [{"attn": lp["attn"], "ln1": lp["ln1"]}]
+        if sub.kind == "mamba":
+            return [{"mamba": lp["mamba"], "ln": lp["ln"]}]
         if sub.kind in ("ffn", "moe"):
             if "moe" in lp:
                 experts = mlp_mod.split_experts(lp["moe"])["experts"]
@@ -627,26 +652,54 @@ class PipelinedExecutor:
             trace.end(sp, layer=i, source=src)
         return xs, prev_engine
 
-    def _layer_loop(self, x, by_name, streaming, attn_fn, cols=False):
-        """Walk every layer's (attn, ffn or moe) sub-layers under the
-        current pass's plan: fetch weights (pinned / prefetched / at-use),
-        account engine calls and boundary hops, run the sub-layer, release
-        scratch slots. ``attn_fn(w, x, i)`` supplies the attention step;
-        ``cols`` goes to the FFN sub-layer."""
-        cfg = self.cfg
+    def _mixer_sub(self, i, kind, x, step, by_name, streaming, prev_engine,
+                   calls=1):
+        """Layer ``i``'s ``attn`` or ``mamba`` sub-layer: fetch its weights
+        (pinned / prefetched / at-use), run ``step(w, x, j)`` with ``j``
+        the layer's index into its kind's KV or state, release them.
+        Returns (x, engine). While tracing, a ``sub.<kind>`` span with the
+        weights' source."""
+        sp = trace.begin("sub." + kind)
+        pl = by_name[f"L{i}/{kind}"]
+        w, src = self._weights_for(pl, streaming)
+        prev_engine = self._note_engine(pl, prev_engine, calls=calls)
+        x = step(w, x, self._index[i])
+        del w
+        self._done_with(pl, src)
+        if sp is not None:
+            trace.end(sp, layer=i, source=src)
+        return x, prev_engine
+
+    def _kinds(self, i):
+        """(attention, FFN, Mamba-2) sub-layers of layer ``i``: both of
+        the first in a decoder, one of the three in a patterned hybrid."""
+        k = self.cfg.layer_pattern[i] if self.cfg.layer_pattern else None
+        return k in (None, "*"), k in (None, "-"), k == "M"
+
+    def _layer_loop(self, x, by_name, streaming, attn_fn, cols=False,
+                    mamba_fn=None):
+        """Walk every layer's (attn, ffn or moe, or mamba) sub-layers under
+        the current pass's plan: fetch weights (pinned / prefetched /
+        at-use), account engine calls and boundary hops, run the sub-layer,
+        release scratch slots. ``attn_fn(w, x, j)`` and ``mamba_fn(w, x,
+        j)`` supply the attention and Mamba-2 steps (``j``: the layer's
+        index into the KV or the state); ``cols`` goes to the FFN
+        sub-layer."""
         prev_engine = None
-        for i in range(cfg.n_layers):
-            sp = trace.begin("sub.attn")
-            pa = by_name[f"L{i}/attn"]
-            w, src = self._weights_for(pa, streaming)
-            prev_engine = self._note_engine(pa, prev_engine)
-            x = attn_fn(w, x, i)
-            del w
-            self._done_with(pa, src)
-            if sp is not None:
-                trace.end(sp, layer=i, source=src)
-            (x,), prev_engine = self._ffn_sub(i, [x], None, by_name,
-                                              streaming, prev_engine, cols)
+        for i in range(self.cfg.n_layers):
+            attn, ffn, mamba = self._kinds(i)
+            if mamba:
+                x, prev_engine = self._mixer_sub(i, "mamba", x, mamba_fn,
+                                                 by_name, streaming,
+                                                 prev_engine)
+            if attn:
+                x, prev_engine = self._mixer_sub(i, "attn", x, attn_fn,
+                                                 by_name, streaming,
+                                                 prev_engine)
+            if ffn:
+                (x,), prev_engine = self._ffn_sub(i, [x], None, by_name,
+                                                  streaming, prev_engine,
+                                                  cols)
         return x
 
     # ------------------------------------------------ expert-granular moe
@@ -772,7 +825,9 @@ class PipelinedExecutor:
             k, v = kv["k"], kv["v"]
             x = self._layer_loop(
                 x, by_name, streaming,
-                lambda w, x, i: eng.attn_step(self.cfg, w, x, k, v, i, pos))
+                lambda w, x, i: eng.attn_step(self.cfg, w, x, k, v, i, pos),
+                mamba_fn=lambda w, x, j: eng.mamba_step(
+                    self.cfg, w, x, kv["conv"][j], kv["ssm"][j]))
             logits = eng.head_step(self.cfg, self._final_dev,
                                    self._unembed_dev, x[:, -1:])
         finally:
@@ -818,7 +873,12 @@ class PipelinedExecutor:
                 def attn(w, x, i):
                     return eng.attn_decode_step(self.cfg, w, x, kv["k"],
                                                 kv["v"], i, pos_vec, active)
-            x = self._layer_loop(x, by_name, streaming, attn)
+
+            def mamba(w, x, j):
+                return eng.mamba_step(self.cfg, w, x, kv["conv"][j],
+                                      kv["ssm"][j], active=active)
+            x = self._layer_loop(x, by_name, streaming, attn,
+                                 mamba_fn=mamba)
             logits = eng.head_step(self.cfg, self._final_dev,
                                    self._unembed_dev, x)
         finally:
@@ -950,7 +1010,47 @@ class PipelinedExecutor:
                                  n_pages=n_pages, device=self.device)
             cache.fault_plan = self.faults     # the alloc.host point
             return cache
-        return init_cache(self.cfg, batch, self.max_seq, device=self.device)
+        if not self.cfg.layer_pattern:
+            return init_cache(self.cfg, batch, self.max_seq,
+                              device=self.device)
+        return self._init_hybrid_cache(batch)
+
+    def _init_hybrid_cache(self, batch):
+        """A patterned hybrid's cache, zero-filled: the attention layers'
+        stacked KV, (n_attn, B, KV, S, hd) in bf16, and each Mamba-2
+        layer's conv history (n_mamba, B, K-1, C) in the model's dtype and
+        SSM state (n_mamba, B, H, P, N) in f32."""
+        cfg, dev = self.cfg, self.device
+        n_attn, n_mamba = (cfg.layer_pattern.count(k) for k in "*M")
+        kv_shape = (n_attn, batch, cfg.n_kv_heads, self.max_seq,
+                    cfg.resolved_head_dim)
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache = {
+            "k": torch.zeros(kv_shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(kv_shape, dtype=torch.bfloat16, device=dev),
+            "conv": torch.zeros((n_mamba, batch, cfg.ssm_conv - 1, conv_ch),
+                                dtype=self._embed_dev.dtype, device=dev),
+            "ssm": torch.zeros((n_mamba, batch, cfg.n_ssm_heads,
+                                cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=dev)}
+        self.stats.ssm_state_bytes = sum(
+            cache[k].numel() * cache[k].element_size()
+            for k in ("conv", "ssm"))
+        return cache
+
+    @property
+    def has_state(self) -> bool:
+        """True when the cache holds recurrent state, which an admission
+        must zero (stacked KV needs no reset: a position past a slot's
+        length is masked)."""
+        return "M" in self.cfg.layer_pattern
+
+    def reset_state(self, kv, slot: int):
+        """Zero slot ``slot``'s conv and SSM state in every Mamba-2 layer,
+        so a request admitted there starts from nothing its slot held."""
+        kv["conv"][:, slot].zero_()
+        kv["ssm"][:, slot].zero_()
+        self.stats.state_resets += 1
 
     def prefill(self, tokens, kv=None, prefill_mode: str | None = None,
                 slot: int | None = None):
@@ -1071,36 +1171,45 @@ class PipelinedExecutor:
                                  tokens[:, c * chunk:(c + 1) * chunk])
                   for c in range(C)]
             valid = [chunk if c < C - 1 else tail for c in range(C)]
-            prev_engine = None
-            for i in range(cfg.n_layers):
-                sp = trace.begin("sub.attn")
-                pa = by_name[f"L{i}/attn"]
-                w, src = self._weights_for(pa, streaming)
-                prev_engine = self._note_engine(pa, prev_engine, calls=C)
+            # the rows of the batch in a hybrid's state: the slot's, or all
+            row = slice(slot, slot + 1) if slot is not None else slice(None)
+
+            def attn(w, xs, i):
                 if paged:
                     self._page_fault_layer(kv, i, page_stream)
                     table = kv.layer_table(i, rows=rows)
-                    for c in range(C):
-                        xs[c] = eng.attn_prefill_paged_step(
-                            cfg, w, xs[c], kv.k_pool, kv.v_pool, table,
-                            pos0 + c * chunk, valid[c])
+                    xs = [eng.attn_prefill_paged_step(
+                        cfg, w, xs[c], kv.k_pool, kv.v_pool, table,
+                        pos0 + c * chunk, valid[c]) for c in range(C)]
                     kv.end_layer(i)
-                elif slot is not None:
-                    for c in range(C):
-                        xs[c] = eng.attn_prefill_slot_step(
-                            cfg, w, xs[c], kv["k"], kv["v"], i, slot,
-                            c * chunk, valid[c])
-                else:
-                    for c in range(C):
-                        xs[c] = eng.attn_prefill_step(
-                            cfg, w, xs[c], kv["k"], kv["v"], i, c * chunk,
-                            valid[c])
-                del w
-                self._done_with(pa, src)
-                if sp is not None:
-                    trace.end(sp, layer=i, source=src)
-                xs, prev_engine = self._ffn_sub(i, xs, valid, by_name,
-                                                streaming, prev_engine)
+                    return xs
+                if slot is not None:
+                    return [eng.attn_prefill_slot_step(
+                        cfg, w, xs[c], kv["k"], kv["v"], i, slot,
+                        c * chunk, valid[c]) for c in range(C)]
+                return [eng.attn_prefill_step(
+                    cfg, w, xs[c], kv["k"], kv["v"], i, c * chunk, valid[c])
+                    for c in range(C)]
+
+            def mamba(w, xs, j):
+                # each chunk from the state the one before it left
+                return [eng.mamba_step(cfg, w, xs[c], kv["conv"][j, row],
+                                       kv["ssm"][j, row], valid[c])
+                        for c in range(C)]
+            prev_engine = None
+            for i in range(cfg.n_layers):
+                has_attn, has_ffn, has_mamba = self._kinds(i)
+                if has_mamba:
+                    xs, prev_engine = self._mixer_sub(
+                        i, "mamba", xs, mamba, by_name, streaming,
+                        prev_engine, calls=C)
+                if has_attn:
+                    xs, prev_engine = self._mixer_sub(
+                        i, "attn", xs, attn, by_name, streaming,
+                        prev_engine, calls=C)
+                if has_ffn:
+                    xs, prev_engine = self._ffn_sub(i, xs, valid, by_name,
+                                                    streaming, prev_engine)
             # final logits from the last VALID position only
             logits = eng.head_step(cfg, self._final_dev, self._unembed_dev,
                                    xs[-1][:, tail - 1:tail])

@@ -4,6 +4,12 @@
 already TP/EP-sharded across a mesh, the planner sees the per-chip slice
 (client mode: div=1 everywhere).
 
+A hybrid with a ``layer_pattern`` (nemotron-h) has one mixer a layer:
+``L{i}/mamba`` with its per-slot ``L{i}/state`` (conv and SSM state, f32
+SSM), ``L{i}/ffn``, or ``L{i}/attn`` with ``L{i}/kv``; zamba2 (no pattern)
+has a mamba sub-layer every layer and the shared block's every
+``shared_attn_every``.
+
 ``expert_granular=True`` splits every MoE FFN below the sub-layer level
 (DESIGN.md §9): a ``L{i}/moe.router`` shard (fp32 router weights, pinned
 with attention priority) plus ``n_experts`` individually placeable
@@ -73,6 +79,39 @@ def expert_weight_bytes(cfg: ModelConfig, wdtype) -> int:
     return int(3 * d * f * wdtype)
 
 
+def _ffn_sub(cfg: ModelConfig, layer: int, wdtype, div: ShardDiv,
+             name: str, w=None, **meta) -> SubLayer:
+    n_mat = 3 if cfg.mlp == "swiglu" else 2
+    f_wdt = {"int8": 1, "int4": 0.5}.get(cfg.weight_quant, wdtype)
+    if w is None:
+        w = ffn_weight_bytes(cfg, wdtype) // div.ffn
+    return SubLayer(name, "ffn", layer, w,
+                    meta={"d": cfg.d_model, "f": cfg.d_ff, "n_mat": n_mat,
+                          "wdtype": f_wdt, "quant": cfg.weight_quant,
+                          **meta})
+
+
+def _mamba_sub(cfg: ModelConfig, layer: int, wdtype, div: ShardDiv):
+    """A Mamba-2 mixer: its in- and out-projections' bytes (B and C per
+    group); ``meta["g"]`` where there is more than one group."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    gn = cfg.ssm_groups * n
+    w = (d * (2 * di + 2 * gn + cfg.n_ssm_heads) + di * d) * wdtype // div.ffn
+    meta = {"d": d, "di": di, "n": max(n, 1), "h": cfg.n_ssm_heads,
+            "p": cfg.ssm_head_dim, "wdtype": wdtype}
+    if cfg.ssm_groups != 1:
+        meta["g"] = cfg.ssm_groups
+    return SubLayer(f"L{layer}/mamba", "mamba", layer, w, meta=meta)
+
+
+def _state_bytes_per_slot(cfg: ModelConfig) -> int:
+    """One slot's state of one Mamba-2 layer as the executor holds it:
+    the conv history in bf16 and the SSM state in f32."""
+    conv = (cfg.ssm_conv - 1) * (cfg.d_inner
+                                 + 2 * cfg.ssm_groups * cfg.ssm_state)
+    return conv * 2 + cfg.n_ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+
+
 def build_graph(cfg: ModelConfig, wdtype: int = 2,
                 div: ShardDiv = ShardDiv(), *,
                 expert_granular: bool = False,
@@ -88,6 +127,23 @@ def build_graph(cfg: ModelConfig, wdtype: int = 2,
     kv_per_tok = 2 * KV * hd * 2 // div.kv  # bf16 cache
     first_shared = True
     for layer in range(cfg.n_layers):
+        kind = cfg.layer_pattern[layer] if cfg.layer_pattern else None
+        if kind == "M":
+            state = _state_bytes_per_slot(cfg) // div.kv
+            subs.append(_mamba_sub(cfg, layer, wdtype, div))
+            subs.append(SubLayer(f"L{layer}/state", "state", layer, 0,
+                                 meta={"bytes_per_slot": state}))
+            continue
+        if kind == "-":
+            subs.append(_ffn_sub(cfg, layer, wdtype, div, f"L{layer}/ffn"))
+            continue
+        if kind == "*":
+            subs.append(SubLayer(f"L{layer}/attn", "attn", layer, attn_w,
+                                 meta={"d": d, "H": H, "KV": KV, "hd": hd,
+                                       "wdtype": wdtype}))
+            subs.append(SubLayer(f"L{layer}/kv", "kv", layer, 0,
+                                 kv_bytes_per_token=kv_per_tok))
+            continue
         is_mamba = cfg.family in ("hybrid", "ssm")
         shared_here = (cfg.shared_attn_every > 0
                        and (layer + 1) % cfg.shared_attn_every == 0)
@@ -126,24 +182,12 @@ def build_graph(cfg: ModelConfig, wdtype: int = 2,
                               "E": m.n_experts, "top_k": m.top_k,
                               "wdtype": e_wdt, "quant": e_quant}))
             else:
-                n_mat = 3 if cfg.mlp == "swiglu" else 2
-                f_wdt = {"int8": 1, "int4": 0.5}.get(cfg.weight_quant, wdtype)
-                w = ffn_weight_bytes(cfg, wdtype) // div.ffn
-                subs.append(SubLayer(f"L{layer}/ffn", "ffn", layer, w,
-                                     meta={"d": d, "f": cfg.d_ff,
-                                           "n_mat": n_mat, "wdtype": f_wdt,
-                                           "quant": cfg.weight_quant}))
+                subs.append(_ffn_sub(cfg, layer, wdtype, div,
+                                     f"L{layer}/ffn"))
         else:
-            di, n = cfg.d_inner, cfg.ssm_state
-            w = (d * (2 * di + 2 * n + cfg.n_ssm_heads) + di * d) * wdtype // div.ffn
-            subs.append(SubLayer(f"L{layer}/mamba", "mamba", layer, w,
-                                 meta={"d": d, "di": di, "n": max(n, 1),
-                                       "h": cfg.n_ssm_heads,
-                                       "p": cfg.ssm_head_dim, "wdtype": wdtype}))
+            subs.append(_mamba_sub(cfg, layer, wdtype, div))
             if shared_here:
                 # one set of shared weights (counted once); per-application KV
-                nm = 3 if cfg.mlp == "swiglu" else 2
-                f_wdt = {"int8": 1, "int4": 0.5}.get(cfg.weight_quant, wdtype)
                 w_attn = attn_w if first_shared else 0
                 w_ffn = (ffn_weight_bytes(cfg, wdtype) // div.ffn) \
                     if first_shared else 0
@@ -154,10 +198,9 @@ def build_graph(cfg: ModelConfig, wdtype: int = 2,
                                            "wdtype": wdtype, "shared": True}))
                 subs.append(SubLayer(f"L{layer}/shared_kv", "kv", layer, 0,
                                      kv_bytes_per_token=kv_per_tok))
-                subs.append(SubLayer(
-                    f"L{layer}/shared_ffn", "ffn", layer, w_ffn,
-                    meta={"d": d, "f": cfg.d_ff, "n_mat": nm, "wdtype": f_wdt,
-                          "quant": cfg.weight_quant, "shared": True}))
+                subs.append(_ffn_sub(cfg, layer, wdtype, div,
+                                     f"L{layer}/shared_ffn", w=w_ffn,
+                                     shared=True))
     heads = max(1, cfg.n_codebooks or 1)
     subs.append(SubLayer("outs/head", "out", cfg.n_layers,
                          heads * d * cfg.vocab * wdtype // max(div.out, 1),

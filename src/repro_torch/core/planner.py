@@ -22,7 +22,8 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.core.costmodel import (Placement, Plan, TimingEstimator,
                                         kv_block_bytes)
 from repro_torch.core.kvpaged import PAGE_SIZE as KV_PAGE_SIZE
-from repro_torch.core.sublayer import STREAMABLE_KINDS, SubLayer
+from repro_torch.core.sublayer import (CACHE_KINDS, STREAMABLE_KINDS,
+                                      SubLayer)
 from repro_torch.core.system import InferenceSetting
 
 TIERS = (1, 4, 16, 32, 64, 512, 1024, 2048, 4096, 8192, 16384)
@@ -339,7 +340,7 @@ def plan_gpu_only(subs, pinned) -> Plan:
         p = _mk(s, pinned)
         if p is None:
             res = "sysram"
-            p = Placement(s, res, "gpu", streamed=s.kind != "kv")
+            p = Placement(s, res, "gpu", streamed=s.kind not in CACHE_KINDS)
         pls.append(p)
     return Plan("gpu-only", pls)
 
@@ -367,7 +368,7 @@ def plan_dynamic(subs, pinned, est: TimingEstimator, tier: int,
         if p is not None:
             pls.append(p)
             continue
-        if s.kind == "kv":
+        if s.kind in CACHE_KINDS:
             pls.append(Placement(s, "sysram", "cpu", streamed=False))
             continue
         t_cpu = est.sublayer_compute(s, "cpu", tier, setting, pcie_active=True)

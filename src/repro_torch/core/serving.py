@@ -253,15 +253,18 @@ class ContinuousBatcher:
         """Chunked prefill of one request into its row of the shared KV.
         Layer-major runs the slot-threaded step (a paged cache maps pages
         and looks up the prefix cache there); chunk-major prefills a view
-        of the row, which writes the shared cache in place."""
+        of the row (the KV's, and a hybrid's state), which writes the
+        shared cache in place. A hybrid's recurrent state is zeroed first:
+        the slot's last request left its own there."""
         T = len(req.prompt)
         tokens = torch.as_tensor(req.prompt, dtype=torch.int32)[None, :]
         n_tiers = len(self.ex.stats.tiers_used)
+        if self.ex.has_state:
+            self.ex.reset_state(self.kv, slot)
         if self._paged or self.ex.prefill_mode == "layer_major":
             logits, _, _ = self.ex.prefill(tokens, kv=self.kv, slot=slot)
         else:
-            kv_slot = {"k": self.kv["k"][:, slot:slot + 1],
-                       "v": self.kv["v"][:, slot:slot + 1]}
+            kv_slot = {k: v[:, slot:slot + 1] for k, v in self.kv.items()}
             logits, _, _ = self.ex.prefill(tokens, kv=kv_slot)
         self.tier_log.extend(self.ex.stats.tiers_used[n_tiers:])
         if self.spec is not None:

@@ -24,7 +24,14 @@ PRIORITY = {"attn": 0, "kv": 1, "mamba": 2, "ffn": 2, "moe": 2, "out": 3,
             # paged-KV block restores (DESIGN.md §12): synthetic demand-only
             # entries the executor makes per layer's faults — never planned, so
             # they share the kv pin priority but stay out of STREAMABLE_KINDS
-            "kv_page": 1}
+            "kv_page": 1,
+            # a Mamba-2 layer's per-slot conv and SSM state: like the KV
+            # cache, resident on the device and counted against the budget
+            "state": 1}
+
+# Kinds that hold a cache on the device and no weights: the planner counts
+# their residency against the budget; the executor owns the arrays.
+CACHE_KINDS = ("kv", "state")
 
 # Kinds the executor can stream into the VRAM scratch (weights copied
 # just-in-time). Everything else is either resident-by-construction (embed,
@@ -52,6 +59,7 @@ class SubLayer:
     layer: int
     weight_bytes: int
     kv_bytes_per_token: int = 0   # kind == "kv": context-proportional size
+    # kind == "state": ``bytes_per_slot``, one decode slot's state
     meta: dict = field(default_factory=dict)
 
     @property
@@ -62,6 +70,8 @@ class SubLayer:
         """Bytes this sub-layer wants resident in the fast tier."""
         if self.kind == "kv":
             return self.kv_bytes_per_token * setting.context * setting.batch
+        if self.kind == "state":
+            return self.meta["bytes_per_slot"] * setting.batch
         return self.weight_bytes
 
     # ------------------------------------------------------------ kernels
@@ -127,11 +137,11 @@ class SubLayer:
             ]
         if self.kind == "mamba":
             d, di, n, h = m["d"], m["di"], m["n"], m["h"]
-            conv_ch = di + 2 * n
+            gn = m.get("g", 1) * n     # B and C, per group
             return [
-                Kernel("matmul", (t, 2 * di + 2 * n + h, d),
-                       2.0 * t * (2 * di + 2 * n + h) * d,
-                       t * d * 2 + d * (2 * di + 2 * n + h) * wb, wdt),
+                Kernel("matmul", (t, 2 * di + 2 * gn + h, d),
+                       2.0 * t * (2 * di + 2 * gn + h) * d,
+                       t * d * 2 + d * (2 * di + 2 * gn + h) * wb, wdt),
                 # ssd scan ~ 2 matmul-ish passes over state (h, p, n)
                 Kernel("elementwise", (t, di),
                        10.0 * t * h * m["p"] * n + 8.0 * t * di,
@@ -146,8 +156,10 @@ class SubLayer:
         if self.kind == "embed":
             d = m["d"]
             return [Kernel("elementwise", (t, d), t * d, 3.0 * t * d)]
-        if self.kind in ("kv", "kv_page"):
-            return []  # no compute; KV bytes ride the attention kernel
+        if self.kind in CACHE_KINDS + ("kv_page",):
+            # no compute; KV bytes ride the attention kernel, the state
+            # the mamba sub-layer's scan
+            return []
         if self.kind == "vision":
             # ViT-ish block cost handled by vlmopt; treat as ffn-like here
             d, f = m["d"], m.get("f", 4 * m["d"])

@@ -1,4 +1,5 @@
-"""zamba2-style hybrid: Mamba2 backbone + one shared transformer block.
+"""Hybrids: zamba2's Mamba2 backbone with one shared transformer block,
+and nemotron-h's one mixer a layer (``cfg.layer_pattern``).
 
 Layout: ``n_layers`` Mamba2 layers; after every ``shared_attn_every``-th
 mamba layer the single *shared* transformer block (attention + FFN, one
@@ -12,6 +13,15 @@ stacked slices. The cache holds every layer's mamba state, (n_grp * per,
 ...) for the groups and (rem, ...) for the tail, and one KV cache per
 shared-block application, (n_grp, B, KV, S, hd); ``forward`` writes it in
 place and returns it.
+
+A patterned hybrid keeps each mixer kind stacked over the layers of that
+kind, with every layer's pre-norm in one (L, d) leaf: ``layers = {"ln",
+"mamba", "ffn", "attn"}``. The Mamba-2 leaves hold nemotron-h's fused
+in-projection ``w_in`` (z, xBC, dt), ``conv_w`` and ``conv_b``,
+``a_log``, ``dt_bias`` and ``d_skip`` in f32, ``gate_norm`` and
+``w_out``. Such a model is served by the executor alone
+(``pattern_layers`` gives its per-layer trees) from the caller's weights;
+it has no init and no monolithic forward here.
 """
 from __future__ import annotations
 
@@ -38,8 +48,44 @@ def _mamba_layer_init(gen, cfg, dtype):
             "mamba": ssm.init_mamba_params(gen, cfg, dtype)}
 
 
+# the tree of each kind's layer as the executor's sub-layers take it
+_PATTERN_TREE = {"M": ("mamba", "ln"), "-": ("ffn", "ln2"),
+                 "*": ("attn", "ln1")}
+
+
+def pattern_index(pattern):
+    """Each layer's index among the layers of its own kind."""
+    seen = {k: 0 for k in _PATTERN_TREE}
+    out = []
+    for k in pattern:
+        out.append(seen[k])
+        seen[k] += 1
+    return out
+
+
+def pattern_layers(layers, pattern):
+    """Layer ``i``'s tree (views into the stacked leaves) for each layer
+    of ``pattern``: ``{"mamba", "ln"}``, ``{"ffn", "ln2"}`` or
+    ``{"attn", "ln1"}``."""
+    out = []
+    for i, (k, j) in enumerate(zip(pattern, pattern_index(pattern))):
+        mixer, norm = _PATTERN_TREE[k]
+        out.append({mixer: layer_slice(layers[mixer], j),
+                    norm: layers["ln"][i]})
+    return out
+
+
+def _served_only(cfg):
+    if cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: a patterned hybrid is served by the executor "
+            "from the caller's weights (Session.open(..., params=...)), "
+            "in the layout this module's docstring gives")
+
+
 def init_params(cfg, gen: torch.Generator):
     """Seeded random weights, every leaf made on ``gen``'s device."""
+    _served_only(cfg)
     dtype = dtype_of(cfg)
     n_grp, rem = _n_groups(cfg), _n_rem(cfg)
     per = cfg.shared_attn_every
@@ -68,6 +114,7 @@ def init_params(cfg, gen: torch.Generator):
 def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
     """Mamba states for every layer (zeros) + a zero-filled KV cache per
     shared-block application, on the card unless ``device="cpu"``."""
+    _served_only(cfg)
     device = resolve_device(device)
     n_grp, rem = _n_groups(cfg), _n_rem(cfg)
     per = cfg.shared_attn_every
@@ -135,6 +182,7 @@ def forward(params, cfg, batch, cache=None, cache_pos=None, remat="none"):
     group (its mamba layers and the shared block) in the backward; as in
     the reference, the tail is not recomputed and ``"dots"`` is
     ``"none"``."""
+    _served_only(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     n_grp, rem = _n_groups(cfg), _n_rem(cfg)

@@ -158,10 +158,13 @@ def _silu_mul(gate, up):
 
 
 def activate(cfg, gate, up):
-    """The FFN hidden: silu(gate) * up (swiglu) or gelu(up), the tanh
-    approximation as jax.nn.gelu's default."""
+    """The FFN hidden: silu(gate) * up (swiglu), relu(up)^2 (relu2,
+    nemotron-h) or gelu(up), the tanh approximation as jax.nn.gelu's
+    default."""
     if cfg.mlp == "swiglu":
         return _silu_mul(gate, up)
+    if cfg.mlp == "relu2":
+        return torch.relu(up).square()
     return F.gelu(up, approximate="tanh")
 
 

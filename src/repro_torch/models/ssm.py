@@ -163,14 +163,16 @@ def ssd_step(state, x, a, b, c):
 
 
 # ================================================================= conv
-def causal_conv(x, w, conv_state=None):
-    """Depthwise causal conv. x: (B, T, C); w: (K, C).
+def causal_conv(x, w, conv_state=None, bias=None, valid_len=None):
+    """Depthwise causal conv. x: (B, T, C); w: (K, C); bias: (C,) or None.
 
     conv_state: (B, K-1, C) previous inputs (decode) or None (zero
     history). Returns (y (B,T,C), new_state (B, K-1, C)). The products are
     rounded to the inputs' dtype and summed one at a time in k order, as
-    the reference's ``sum``; the new state is a view of a fresh tensor,
-    never of ``conv_state``."""
+    the reference's ``sum``, then the bias is added; the new state is a
+    view of a fresh tensor, never of ``conv_state``. With ``valid_len``
+    the new state is the K-1 inputs before position ``valid_len``: a
+    padded tail stays out of the history."""
     B, T, C = x.shape
     K = w.shape[0]
     if conv_state is None:
@@ -179,7 +181,10 @@ def causal_conv(x, w, conv_state=None):
     dt = torch.promote_types(conv_state.dtype, x.dtype)
     ext = torch.cat([conv_state.to(dt), x.to(dt)], dim=1)  # (B, K-1+T, C)
     y = sum(ext[:, k:k + T] * w[k] for k in range(K))
-    return y, ext[:, T:]
+    if bias is not None:
+        y = y + bias
+    end = T if valid_len is None else valid_len
+    return y, ext[:, end:end + K - 1]
 
 
 # ================================================================= mamba2
@@ -208,23 +213,51 @@ def _mamba_inner(params, cfg, u):
     z = u @ params["w_z"]
     xBC = u @ params["w_xbc"]
     dt_raw = u @ params["w_dt"]
-    dt = _softplus(dt_raw.to(torch.float32) + params["dt_bias"])  # (B,T,h)
-    return z, xBC, dt
+    return z, xBC, mamba_dt(params, dt_raw)
 
 
-def mamba_block(params, cfg, u, state=None):
-    """u: (B, T, d). state: None or dict(conv=(B,K-1,C), ssm=(B,H,P,N)).
+def mamba_dt(params, dt_raw):
+    """The step size: ``softplus(dt + dt_bias)`` in f32, (B, T, h); no
+    clamp (both published limits are (0, inf))."""
+    return _softplus(dt_raw.to(torch.float32) + params["dt_bias"])
 
-    Returns (out (B,T,d), new_state dict); ``state`` is only read."""
+
+def group_heads(bc, h):
+    """B or C of ``g`` groups, (B, T, g, N), as per-head maps (B, T, h,
+    N): head ``j`` reads group ``j // (h / g)``."""
+    return bc.repeat_interleave(h // bc.shape[2], dim=2)
+
+
+def mamba_mix(params, cfg, z, xBC, dt, state=None, valid_len=None):
+    """The Mamba-2 mixer between its projections: the causal conv (with
+    its bias, where the layer has one) and SiLU over xBC; x, B and C, with
+    B and C per group (``cfg.ssm_groups``); the SSD over ``x * dt`` from
+    ``state``; the D skip; ``y * silu(z)`` RMS-normed over each group's
+    ``d_inner / groups`` channels. One group is zamba2's block: shared B
+    and C, one norm over d_inner, op for op.
+
+    z: (B, T, di); xBC: (B, T, di + 2 g N); dt: (B, T, h) f32 from
+    ``mamba_dt``; state: None or dict(conv, ssm), only read. Positions at
+    or past ``valid_len`` (a padded tail) take dt = 0, so they leave the
+    SSM state as it was, and stay out of the conv history. Returns (y (B,
+    T, di), new_state dict)."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    p = cfg.ssm_head_dim
-    B_, T, _ = u.shape
-    z, xBC, dt = _mamba_inner(params, cfg, u)
+    # the reference's ModelConfig, which the block also takes, has no
+    # groups: one
+    p, g = cfg.ssm_head_dim, getattr(cfg, "ssm_groups", 1)
+    B_, T, _ = xBC.shape
     conv_state = state["conv"] if state is not None else None
-    xBC, new_conv = causal_conv(xBC, params["conv_w"], conv_state)
+    xBC, new_conv = causal_conv(xBC, params["conv_w"], conv_state,
+                                bias=params.get("conv_b"),
+                                valid_len=valid_len)
     xBC = _silu(xBC)
-    x, b, c = torch.split(xBC, [di, n, n], dim=-1)
+    x, b, c = torch.split(xBC, [di, g * n, g * n], dim=-1)
+    if g > 1:
+        b = group_heads(b.reshape(B_, T, g, n), h)
+        c = group_heads(c.reshape(B_, T, g, n), h)
     x = x.reshape(B_, T, h, p)
+    if valid_len is not None and valid_len < T:
+        dt = dt * (torch.arange(T, device=dt.device) < valid_len)[:, None]
     A = -torch.exp(params["a_log"])  # (h,)
     a = dt * A  # (B,T,h) log-decay
     xdt = x * dt[..., None].to(x.dtype)
@@ -235,12 +268,33 @@ def mamba_block(params, cfg, u, state=None):
         y = y[:, None]
     else:
         init = state["ssm"] if state is not None else None
+        # a length past one SSD chunk and not a multiple of it: zero steps
+        # (no input, no decay) fill the last chunk
+        pad = -T % SSD_CHUNK if T > SSD_CHUNK else 0
+        if pad:
+            xdt, a, b, c = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                            for t in (xdt, a, b, c))
         y, new_ssm = ssd(xdt, a, b, c, initial_state=init)
+        y = y[:, :T]
     y = y + x * params["d_skip"][:, None].to(x.dtype)
     y = y.reshape(B_, T, di)
-    y = rmsnorm(y * _silu(z), params["gate_norm"], cfg.norm_eps)
-    out = y @ params["out_proj"]
-    return out, {"conv": new_conv, "ssm": new_ssm}
+    y = y * _silu(z)
+    if g == 1:
+        y = rmsnorm(y, params["gate_norm"], cfg.norm_eps)
+    else:
+        y = rmsnorm(y.reshape(B_, T, g, di // g),
+                    params["gate_norm"].reshape(g, di // g),
+                    cfg.norm_eps).reshape(B_, T, di)
+    return y, {"conv": new_conv, "ssm": new_ssm}
+
+
+def mamba_block(params, cfg, u, state=None):
+    """u: (B, T, d). state: None or dict(conv=(B,K-1,C), ssm=(B,H,P,N)).
+
+    Returns (out (B,T,d), new_state dict); ``state`` is only read."""
+    z, xBC, dt = _mamba_inner(params, cfg, u)
+    y, new_state = mamba_mix(params, cfg, z, xBC, dt, state)
+    return y @ params["out_proj"], new_state
 
 
 def init_mamba_state(cfg, batch, device, dtype=torch.float32):

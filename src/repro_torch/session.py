@@ -23,11 +23,14 @@ budget by the planner), on the CUDA card unless the caller passes
 expert-granular placement: the planner pins hot experts one by one
 (routing stats seeded from the profile DB, refined online by the
 executor's EMA) and the executor streams only the cold experts the
-routers select. Sessions of the other families — vlm (qwen2-vl-7b's
-language stack), audio (musicgen), hybrid (zamba2) and ssm (xLSTM) — are
-planning-only, as in the reference: they build the graph, the schedule
-and the estimates, and their executor, batcher, ``generate`` and
-``serve`` raise, naming the executor. Those models run through the
+routers select. A hybrid of one mixer a layer (``cfg.layer_pattern``,
+nemotron-h: Mamba-2, MLP and attention layers) serves through the same
+executor with stacked KV and per-slot Mamba-2 state, unquantised and
+without speculation (``open`` raises otherwise). Sessions of the other
+families — vlm (qwen2-vl-7b's language stack), audio (musicgen), hybrid
+(zamba2) and ssm (xLSTM) — are planning-only, as in the reference: they
+build the graph, the schedule and the estimates, and their executor,
+batcher, ``generate`` and ``serve`` raise, naming the executor. Those models run through the
 monolithic ``Model.prefill`` / ``Model.decode_step``.
 
 ``faults=`` (a ``FaultPlan``) injects faults at the named points of the
@@ -63,6 +66,25 @@ from repro_torch.core.serving import ContinuousBatcher, Request
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.common import greedy_token
+
+
+def _check_hybrid_serving(cfg, kv_layout, spec_k, draft_cfg):
+    """A patterned hybrid serves stacked KV, unquantised weights and plain
+    decode: its Mamba-2 state has no pages, no rollback and no int8 or
+    int4 form here."""
+    if kv_layout == "paged":
+        raise ValueError(f"{cfg.name}: a hybrid's recurrent state has no "
+                         "pages; serve it with kv_layout='stacked' (the "
+                         "paged cache and its prefix cache are for "
+                         "attention-only decoders)")
+    if spec_k > 0 or draft_cfg is not None:
+        raise ValueError(f"{cfg.name}: speculative decoding would roll "
+                         "back a hybrid's recurrent state, which cannot "
+                         "be undone; serve it with spec_k=0 and no draft")
+    if cfg.weight_quant != "fp16" or cfg.expert_quant != "none":
+        raise ValueError(f"{cfg.name}: a hybrid's Mamba-2 weights have no "
+                         "int8 or int4 form; serve it with "
+                         "weight_quant='fp16'")
 
 
 class Session:
@@ -101,6 +123,8 @@ class Session:
         if sampling != "greedy":
             raise ValueError(f"sampling={sampling!r} is not supported "
                              "(only 'greedy')")
+        if cfg.layer_pattern:
+            _check_hybrid_serving(cfg, kv_layout, spec_k, draft_cfg)
         if spec_k > 0 and draft_cfg is None:
             raise ValueError("spec_k > 0 needs a draft model "
                              "(Session.open(draft_cfg=...))")
@@ -240,9 +264,11 @@ class Session:
         """The bound executor (built on first use; planning-only sessions
         never construct it)."""
         if self._executor is None:
-            if self.cfg.family not in ("dense", "moe"):
+            if self.cfg.family not in ("dense", "moe") \
+                    and not self.cfg.layer_pattern:
                 raise NotImplementedError(
-                    "the executor runs the dense and moe families; this "
+                    "the executor runs the dense and moe families and "
+                    "hybrids of one mixer a layer; this "
                     f"{self.cfg.family} session is planning-only")
             self._executor = PipelinedExecutor(
                 self.cfg, self.params, self.schedule, max_seq=self.max_seq,

@@ -9,7 +9,8 @@ Runs ``portbench`` as ``portbench/run.py --trace 1`` does (its result
 line is printed the same way), then prints one JSON line ``{"spans":
 ...}``: for decode passes (per pass) and admissions (per 1000 admitted
 prompt tokens), in ms, the span's time split into host dispatch inside
-``sub.attn``, inside ``sub.ffn`` and outside both; the waits for weights
+``sub.attn``, inside ``sub.ffn``, inside ``sub.mamba`` (a hybrid's
+Mamba-2 layers) and outside them; the waits for weights
 by how they came and for the device by what was read; the copies'
 time on the card, their host time and bytes by pool, and the prefetch
 worker's ``prefetch.slot_wait``, each counted in the pass its span
@@ -31,7 +32,7 @@ from pathlib import Path
 T_PROCESS = time.time()
 ROOT = Path(__file__).resolve().parents[1]
 OUTER = ("serve.admit", "serve.decode")
-SUBS = ("sub.attn", "sub.ffn")
+SUBS = ("sub.attn", "sub.ffn", "sub.mamba")
 WORKER = ("copy.h2d", "prefetch.slot_wait")
 ALLOCATOR = ("num_alloc_retries", "num_device_alloc", "num_device_free",
              "num_sync_all_streams")
