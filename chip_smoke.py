@@ -251,6 +251,20 @@ Phases (each raises on failure; the last line is printed only if all pass):
    T = 4096, B = 2, 30 steps and a fault at step 25 (the restart from
    step 20, the replayed losses bit-equal, the loss falling, K4 forward
    and backward once a layer per step pass, on the tensor cores).
+20. decode graphs (``PipelinedExecutor.decode_fused``,
+   ``decode_graph_check``): on a resident qwen3-14b plan (published
+   widths, 2 layers) and a resident Nemotron-H hybrid (``M*-``), 16
+   graphed fused passes at the card's own tier pick, then 100 with each
+   count of active slots at one of the first four tiers of the table,
+   against as many eager ones on a copy of the cache, with changing
+   active masks and positions: logits and tokens ``torch.equal`` and the
+   caches (KV, conv and SSM state) equal after, one recording per tier
+   and cache and none after, one more after a rebind, K1 launched by its
+   wrapper as often on a graphed pass as on an eager one; a graphed and
+   an eager step's host ms. Then ``concurrent_cublas_check``: another
+   thread's cuBLAS matmuls across 4 recordings stay ``torch.equal``.
+   To run it alone: import ``chip_smoke`` with ``src`` on the path,
+   ``build_kernels()``, ``decode_graph_path()`` (~1 min).
 
 It needs one CUDA card and exits non-zero without one, or when run from a
 directory that does not hold the repository's ``src/repro_torch``.
@@ -5655,6 +5669,241 @@ def examples_path():
             "k4_bwd_by_path": k4b}
 
 
+GRAPH_SEQ = 160
+
+
+def _graph_session(model, device):
+    """A resident session (2.0x) of a benchmark configuration cut to a
+    few layers at its published widths, weights drawn on ``device``:
+    qwen3-14b at 2 layers, or Nemotron-H at 3 (``M*-``). Returns it and
+    its vocabulary."""
+    from repro_torch import Session
+    from repro_torch.core import (SYSTEMS, InferenceSetting, build_graph,
+                                  run_install, total_weight_bytes)
+    sys.path.insert(0, str(ROOT))
+    from portbench import spec
+    from portbench.weights import draw_weights
+    if model == "qwen3-14b":
+        c = json.loads((ROOT / "portbench/configs/qwen3-14b-10of40.json")
+                       .read_text())
+        c["num_hidden_layers"] = 2
+    else:
+        c = json.loads((ROOT / "portbench/configs/"
+                        "nemotron-h-47b-19of98.json").read_text())
+        c.update(num_hidden_layers=3, hybrid_override_pattern="M*-")
+    arch = spec.architecture(c)
+    s = arch.shapes(c, model)
+    cfg = arch.port_config(c, s)
+    host = draw_weights(arch.leaves(s), 2 ** 31 + 32, device)
+    system = SYSTEMS["h100"]
+    total = total_weight_bytes(build_graph(cfg))
+    return Session.open(cfg, system, 2 * total,
+                        InferenceSetting(batch=MAX_BATCH, context=GRAPH_SEQ),
+                        db=run_install(system, quick=True), params=host,
+                        max_seq=GRAPH_SEQ, device=device), s.vocab
+
+
+def graphed_against_eager(ex, vocab, steps, seed=0):
+    """``steps`` fused passes of ``ex`` through ``decode_fused`` on a
+    fresh cache, and as many eager ``_run_decode`` passes on a copy of
+    it, with the same inputs: each step's active slots (every count from
+    1 to MAX_BATCH in the first steps, then drawn) at their own
+    positions. Raises unless every step's logits and tokens are
+    ``torch.equal`` and the caches equal after. Returns the decode tiers
+    the steps ran at."""
+    import numpy as np
+    import torch
+    from repro_torch.models.common import greedy_token
+    dev = ex.device
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(8, 25, size=MAX_BATCH)
+    kv = ex.init_kv(MAX_BATCH)
+    for slot, n in enumerate(lens):
+        ex.prefill(torch.as_tensor(rng.randint(0, vocab, size=(1, n))
+                                   .astype(np.int32)), kv=kv, slot=slot)
+    copy = {k: v.clone() for k, v in kv.items()}
+    pos = lens.astype(np.int32)
+    tiers = []
+    for step in range(steps):
+        n = 1 + (step % MAX_BATCH if step < 2 * MAX_BATCH
+                 else rng.randint(MAX_BATCH))
+        act = np.zeros(MAX_BATCH, bool)
+        act[rng.choice(MAX_BATCH, n, replace=False)] = True
+        tok = rng.randint(0, vocab, size=(MAX_BATCH, 1)).astype(np.int32)
+        args = [torch.as_tensor(a).to(dev) for a in (tok, pos, act)]
+        lg, _, tg = ex.decode_fused(args[0], kv, args[1], args[2], n,
+                                    pick=greedy_token)
+        le, _ = ex._run_decode(args[0], copy, args[1], args[2], n)
+        if not (torch.equal(lg, le) and torch.equal(tg,
+                                                    greedy_token(le[:, -1]))):
+            gap = (lg.float() - le.float()).abs().max().item()
+            raise AssertionError(f"step {step} ({n} active): graphed logits "
+                                 f"!= eager (max |diff| {gap})")
+        tiers.append(ex._decode_tier(n))
+        pos = pos + act
+    for k in kv:
+        if not torch.equal(kv[k], copy[k]):
+            raise AssertionError(f"the graphed steps left another {k!r} "
+                                 "than the eager ones")
+    return tiers
+
+
+def _ms_per_step(fn, steps=20):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def decode_graph_check(model, device, steps=100):
+    """Graphed decode against eager for one model (``_graph_session``):
+    first 16 steps at the tiers the card's own profile picks (one for 1
+    to 4 new tokens), then ``steps`` more on a new cache with each count
+    of active slots forced to one of the first four tiers of the table,
+    the eager pass and the graphed one alike; each cache recorded once
+    per tier and replayed after; one more recording after a rebind; and
+    K1 launched by its wrapper on every graphed pass. Returns what it
+    read: tiers, recordings, replays, and a graphed and an eager step's
+    host ms at every slot active."""
+    import torch
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+    from repro_torch.models.common import greedy_token
+    sess, vocab = _graph_session(model, device)
+    ex = sess.executor
+    st = ex.stats
+    own = graphed_against_eager(ex, vocab, 16, seed=1)
+    if st.decode_graph_captures != len(set(own)):
+        raise AssertionError(f"{st.decode_graph_captures} recordings at the "
+                             f"card's own tiers {sorted(set(own))}")
+    first = sorted(ex.schedule.tiers)[:MAX_BATCH]
+    ex._decode_tier = lambda n: first[n - 1]
+    try:
+        tiers = graphed_against_eager(ex, vocab, steps)
+    finally:
+        del ex._decode_tier
+    made = st.decode_graph_captures - len(set(own))
+    if made != len(set(tiers)) or len(set(tiers)) < 2:
+        raise AssertionError(f"{made} recordings at the tiers "
+                             f"{sorted(set(tiers))}")
+    if st.decode_graph_replays != 16 + steps - st.decode_graph_captures:
+        raise AssertionError(f"{st.decode_graph_replays} replays of "
+                             f"{16 + steps} steps")
+    ex.rebind(ex.schedule)
+    kv = ex.init_kv(MAX_BATCH)
+    args = (torch.zeros((MAX_BATCH, 1), dtype=torch.int32, device=device),
+            kv, torch.full((MAX_BATCH,), 8, dtype=torch.int32,
+                           device=device),
+            torch.ones(MAX_BATCH, dtype=torch.bool, device=device),
+            MAX_BATCH)
+    before = st.decode_graph_captures
+    ex.decode_fused(*args, pick=greedy_token)
+    k1 = streamed_matmul.launches
+    graphed = _ms_per_step(lambda: ex.decode_fused(*args, pick=greedy_token))
+    k1 = streamed_matmul.launches - k1
+    if st.decode_graph_captures != before + 1:
+        raise AssertionError(f"{st.decode_graph_captures - before} "
+                             "recordings after one rebind")
+    k1_eager = streamed_matmul.launches
+    eager = _ms_per_step(lambda: ex._run_decode(*args))
+    k1_eager = streamed_matmul.launches - k1_eager
+    if k1 != k1_eager or k1 == 0:
+        raise AssertionError(f"K1 launched {k1} times in 20 graphed passes, "
+                             f"{k1_eager} in 20 eager ones")
+    out = {"model": model, "steps": 16 + steps,
+           "own_tiers": sorted(set(own)), "tiers": sorted(set(tiers)),
+           "captures": before, "replays": 16 + steps - before,
+           "k1_per_pass": k1 / 20, "graphed_ms": graphed, "eager_ms": eager}
+    sess.close()
+    return out
+
+
+def concurrent_cublas_check(device, recordings=4):
+    """A thread's cuBLAS matmuls on a stream of its own while this thread
+    records decode passes (``_graph_session``, qwen3-14b), each recording
+    clearing cuBLAS's workspaces: every result of the thread is
+    ``torch.equal`` to its first. Returns the thread's matmul count."""
+    import torch
+    from repro_torch.models.common import greedy_token
+    sess, _ = _graph_session("qwen3-14b", device)
+    ex = sess.executor
+    g = torch.Generator(device=device).manual_seed(7)
+    a, b = (torch.randn((256, 4096), generator=g, device=device,
+                        dtype=torch.bfloat16),
+            torch.randn((4096, 4096), generator=g, device=device,
+                        dtype=torch.bfloat16))
+    ready, stop = threading.Event(), threading.Event()
+    seen = {"n": 0, "bad": 0, "error": None}
+
+    def other():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(device)):
+                want = a @ b
+                ready.set()
+                while not stop.is_set():
+                    if not torch.equal(a @ b, want):
+                        seen["bad"] += 1
+                    seen["n"] += 1
+        except Exception as e:  # noqa: BLE001 (reported below)
+            seen["error"] = repr(e)
+        finally:
+            ready.set()
+
+    t = threading.Thread(target=other, daemon=True)
+    t.start()
+    ready.wait(60)
+    kv = ex.init_kv(MAX_BATCH)
+    args = (torch.zeros((MAX_BATCH, 1), dtype=torch.int32, device=device),
+            kv, torch.full((MAX_BATCH,), 8, dtype=torch.int32,
+                           device=device),
+            torch.ones(MAX_BATCH, dtype=torch.bool, device=device),
+            MAX_BATCH)
+    try:
+        for _ in range(recordings):
+            ex.rebind(ex.schedule)
+            for _ in range(3):
+                ex.decode_fused(*args, pick=greedy_token)
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        t.join(120)
+    if t.is_alive() or seen["error"] or seen["bad"] or seen["n"] == 0:
+        raise AssertionError(f"the other thread's matmuls: {seen}, alive "
+                             f"{t.is_alive()}")
+    if ex.stats.decode_graph_captures != recordings:
+        raise AssertionError(f"{ex.stats.decode_graph_captures} recordings")
+    sess.close()
+    return seen["n"]
+
+
+def decode_graph_path():
+    """Phase 20: ``decode_graph_check`` for a dense and a hybrid resident
+    plan, and ``concurrent_cublas_check``."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for model in ("qwen3-14b", "nemotron-h"):
+        row = decode_graph_check(model, dev)
+        free_cuda()
+        log(f"decode graphs {model}: {row['steps']} graphed fused passes "
+            f"torch.equal to eager (logits, tokens, caches), the card's own "
+            f"tiers {row['own_tiers']} then {row['tiers']}; "
+            f"{row['captures']} recordings, {row['replays']} replays, 1 "
+            f"recording after a rebind; K1 {row['k1_per_pass']:g} launches "
+            f"a pass, graphed and eager alike; a step at {MAX_BATCH} "
+            f"active: graphed {row['graphed_ms']:.3f} ms, eager "
+            f"{row['eager_ms']:.3f} ms")
+        out[model] = row
+    n = concurrent_cublas_check(dev)
+    free_cuda()
+    log(f"decode graphs: {n} matmuls of another thread across 4 "
+        "recordings, each torch.equal to its first")
+    out["concurrent_matmuls"] = n
+    return out
+
+
 def source_design(name):
     """The ``// Design`` block of ``kernels/csrc/<name>.cu``'s header
     comment as one line: what the measured kernel is, read from the source
@@ -5792,6 +6041,8 @@ def main() -> int:
     lap("phase 18")
     examples = examples_path()
     lap("phase 19")
+    decode_graphs = decode_graph_path()
+    lap("phase 20")
     faults.update({"moe": moe.pop("faults"), "spec": spec.pop("faults")})
     log(json.dumps({"main_path": main["rows"],
                     "quant_paths": main["quant"],
@@ -5805,6 +6056,7 @@ def main() -> int:
                     "faults": faults, "gateway": gateway,
                     "families": families, "training": training,
                     "counts": counts, "examples": examples["twins"],
+                    "decode_graphs": decode_graphs,
                     "k4_backward": bkern,
                     "phase_seconds": {k: v for k, v in laps.items()
                                       if k != "_last"},

@@ -2,9 +2,14 @@
 
 Each step is a plain function of the config, the sub-layer's weights (a
 dict of tensors, as the reference passes trees) and the activations. PyTorch
-runs them eagerly: there is no counterpart of the reference's ``jax.jit``
-executable cache and so none of its ``trace_counts`` (the port uses neither
-CUDA graphs nor ``torch.compile``).
+runs them eagerly, with no ``torch.compile``: there is no counterpart of the
+reference's ``jax.jit`` executable cache. The one replay is the executor's:
+a fused decode pass whose sub-layers are all pinned is recorded once per
+key and replayed, the same kernels in the same order
+(``PipelinedExecutor.decode_fused``); ``ExecStats.decode_graph_captures``
+is the counterpart of ``trace_counts``. The streamed matmuls stay out of
+its CUDA graphs: ``_mm`` launches them through ``cudagraph.eager``, on
+every replay too.
 
 KV caches are stacked ``(n_layers, B, KV, S, hd)`` tensors, or a paged
 cache's page pools ``(P, KV, page_size, hd)`` with a per-layer page table
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import cudagraph
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
@@ -214,22 +220,29 @@ def ffn_step(cfg, w, x, cols=False):
                                                   cfg.norm_eps, cols))
 
 
+def _mm(x2, p, name):
+    """``_mm_dispatch`` (K1, K2 or K3 by the weight's format: (M, N) in
+    x2's dtype), launched outside any CUDA graph being recorded
+    (``cudagraph.eager``)."""
+    return cudagraph.eager(_mm_dispatch, (x2, p, name),
+                           (x2.shape[0], p[name].shape[-1]), x2.dtype)
+
+
 def _ffn_streamed(cfg, p, h):
-    """Dense FFN with all matmuls through ``_mm_dispatch``."""
+    """Dense FFN with all matmuls through ``_mm``."""
     B, T, d = h.shape
     x2 = h.reshape(B * T, d)
     if cfg.mlp == "swiglu":
-        hh = activate(cfg, _mm_dispatch(x2, p, "w_gate"),
-                      _mm_dispatch(x2, p, "w_up"))
+        hh = activate(cfg, _mm(x2, p, "w_gate"), _mm(x2, p, "w_up"))
     else:
-        hh = activate(cfg, None, _mm_dispatch(x2, p, "w_up"))
-    return _mm_dispatch(hh, p, "w_down").reshape(B, T, d)
+        hh = activate(cfg, None, _mm(x2, p, "w_up"))
+    return _mm(hh, p, "w_down").reshape(B, T, d)
 
 
 # ------------------------------------------------------------ mamba
 def mamba_step(cfg, w, x, conv, ssm_state, valid_len=None, active=None):
     """A Mamba-2 mixer layer of a patterned hybrid: x + mixer(rmsnorm(x)),
-    its in- and out-projections through K1 (``_mm_dispatch``).
+    its in- and out-projections through K1 (``_mm``).
     w: {"mamba": the layer's leaves, "ln"}; x: (B, T, d); conv (B, K-1, C)
     and ssm_state (B, H, P, N): this layer's state rows, read, then
     written in place. A prefill chunk's positions at or past
@@ -240,7 +253,7 @@ def mamba_step(cfg, w, x, conv, ssm_state, valid_len=None, active=None):
     p = w["mamba"]
     di, h = cfg.d_inner, cfg.n_ssm_heads
     h2 = rmsnorm(x, w["ln"], cfg.norm_eps).reshape(B * T, d)
-    zxd = _mm_dispatch(h2, p, "w_in").reshape(B, T, -1)
+    zxd = _mm(h2, p, "w_in").reshape(B, T, -1)
     z, xbc, dt_raw = torch.split(zxd, [di, zxd.shape[-1] - di - h, h],
                                  dim=-1)
     y, new = ssm_mod.mamba_mix(p, cfg, z, xbc, ssm_mod.mamba_dt(p, dt_raw),
@@ -250,7 +263,7 @@ def mamba_step(cfg, w, x, conv, ssm_state, valid_len=None, active=None):
             keep = active.reshape((B,) + (1,) * (old.ndim - 1))
             upd = torch.where(keep, upd.to(old.dtype), old)
         old.copy_(upd)
-    out = _mm_dispatch(y.reshape(B * T, di), p, "w_out")
+    out = _mm(y.reshape(B * T, di), p, "w_out")
     return x + out.reshape(B, T, d)
 
 

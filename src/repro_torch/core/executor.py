@@ -20,9 +20,19 @@ slots' as they were, prefill carries a slot's state from chunk to chunk
 (a padded tail leaves it untouched), and the serving layer zeroes a
 slot's state when it admits a request (``reset_state``).
 
+CUDA graphs (``decode_fused``, ``core/cudagraph.py``): the serving
+loop's fused decode pass, where every sub-layer of its tier plan is pinned
+and the cache is stacked and the model not MoE, is recorded once per
+(tier, batch) and replayed on later steps; a replay issues the same
+kernels in the same order, PyTorch's from CUDA graphs and K1–K3 from
+their wrappers between them, and adds the host counts of one eager pass.
+Prefill, verify, per-slot, paged, MoE and streamed passes run eagerly.
+
 Under ``torch.profiler`` each sub-layer is a ``sub.attn`` / ``sub.ffn`` /
-``sub.mamba`` span, each host wait for weights a ``wait.weights`` span and each wait for
-a device result (an MoE route, a paged pass's positions) a
+``sub.mamba`` span (none in a replayed pass, which runs none of the
+executor's Python), each
+host wait for weights a ``wait.weights`` span and each wait for a device
+result (an MoE route, a paged pass's positions) a
 ``wait.device`` span (``core/trace.py``); ``ExecStats`` holds the byte
 counts.
 
@@ -79,13 +89,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import cudagraph
 from repro_torch.core import engine as eng
 from repro_torch.core import trace
 from repro_torch.core.costmodel import Placement
 from repro_torch.core.faults import (DemandTimeout, FaultPlan, RecoveryPolicy,
                                      WorkerLost)
 from repro_torch.core.kvpaged import PAGE_SIZE, PagedKVCache
-from repro_torch.core.planner import Schedule
+from repro_torch.core.planner import PINNED_COMPUTE_KINDS, Schedule
 from repro_torch.core.prefetch import (PrefetchEngine, drop_traceback,
                                        groups_nbytes, groups_to_device,
                                        hand_to_compute, is_device_error,
@@ -169,6 +180,10 @@ class ExecStats:
     # device (``init_kv``), and the slots zeroed for an admission
     ssm_state_bytes: int = 0
     state_resets: int = 0
+    # fused decode passes captured as CUDA graphs (one per key, and again
+    # after a rebind or on another cache) and replayed (``decode_fused``)
+    decode_graph_captures: int = 0
+    decode_graph_replays: int = 0
 
     @property
     def accept_rate(self) -> float:
@@ -182,6 +197,17 @@ class ExecStats:
 def resolve_prefill_mode(prefill_mode) -> str:
     """``None`` -> the default, layer-major."""
     return "layer_major" if prefill_mode is None else prefill_mode
+
+
+@dataclass
+class _Graph:
+    """A recorded fused decode pass: what it was recorded against, its
+    static inputs (tokens, positions, active mask), the replay, and the
+    ``ExecStats`` counts of one pass (``cudagraph.since``)."""
+    stamp: tuple
+    inputs: tuple
+    replay: object
+    counts: dict
 
 
 def pin_host_tree(tree, device):
@@ -272,6 +298,9 @@ class PipelinedExecutor:
         self.prefetch = PrefetchEngine(
             self._host_groups, self.device, faults=faults,
             recovery=self.recovery) if overlap else None
+        # fused decode passes as CUDA graphs: (tier, batch) -> _Graph
+        self.graph_capture = cudagraph.CudaGraphCapture()
+        self._graphs = {}
 
     def _pin(self, pl):
         self._pinned[pl.sub.name] = self._join(
@@ -296,12 +325,16 @@ class PipelinedExecutor:
         schedule: sub-layers leaving the pinned set drop their device
         tensors, entering ones are copied once — the unchanged intersection
         is never touched and the KV caches (owned by the caller) survive,
-        so in-flight decode slots keep their state. Must be called between
-        passes. Returns a report whose ``pinned_bytes``/``evicted_bytes``
-        equal the corresponding ``Schedule.diff`` fields."""
+        so in-flight decode slots keep their state. Every decode graph is
+        dropped: the next fused pass at a key captures it again. Must be
+        called between passes. Returns a report whose
+        ``pinned_bytes``/``evicted_bytes`` equal the corresponding
+        ``Schedule.diff`` fields."""
         assert self.prefetch is None or not self.prefetch.active, \
             "rebind during an active prefetch session (mid-pass)"
         t0 = time.perf_counter()
+        # a graph holds the addresses of the weights it read
+        self._graphs.clear()
         new_pins = {pl.sub.name: pl for pl in schedule.pinned_placements()}
         to_evict = [n for n in self._pinned if n not in new_pins]
         to_pin = [n for n in new_pins if n not in self._pinned]
@@ -834,26 +867,103 @@ class PipelinedExecutor:
             self._end_pass(started)
         return logits, kv
 
+    def _decode_tier(self, new_tokens: int) -> int:
+        return self.schedule.pick_decode_tier(
+            new_tokens, queue_depth=self.sched_queue_depth,
+            slack_s=self.sched_slack_s)
+
     def _run_decode(self, tokens, kv, pos_vec, active, n_active: int):
-        """One fused multi-slot decode iteration.
+        """One fused multi-slot decode iteration, eagerly.
 
         tokens: (B, 1) last token per slot; pos_vec: (B,) per-slot cache
-        positions; active: (B,) bool slot mask (all on the device);
-        n_active: batch-wide new token count (drives the tier pick). All
-        slots run through one batched pass, so every streamed sub-layer
-        crosses the link exactly once per iteration. ``kv``: the stacked
-        dict, or a ``PagedKVCache`` whose pages this pass maps and
-        restores."""
+        positions; active: (B,) bool slot mask (on the device, or on the
+        host, page-locked on a card, whence they are copied without a
+        wait); n_active: batch-wide new token count (drives the tier
+        pick). All slots run through one batched pass, so every streamed
+        sub-layer crosses the link exactly once per iteration. ``kv``:
+        the stacked dict, or a ``PagedKVCache`` whose pages this pass
+        maps and restores. Returns ((B, 1, V) logits, kv)."""
         # before the page table is touched: an abort leaves nothing to undo
         self._check_alloc("decode")
+        return self._decode_pass(tokens, kv, pos_vec, active, n_active,
+                                 self._decode_tier(n_active))
+
+    def decode_fused(self, tokens, kv, pos_vec, active, n_active: int, pick):
+        """The serving loop's fused decode iteration: ``_run_decode``'s
+        pass and ``pick(logits[:, -1])``, each slot's next token. Returns
+        ((B, 1, V) logits, kv, (B,) tokens).
+
+        A pass that can be recorded (``_graph_key``) is replayed: the
+        first pass at a key runs eagerly on the capture stream and is then
+        recorded (``core/cudagraph.py``: PyTorch's operations as CUDA
+        graphs, K1–K3 launched between them), every later one copies its
+        inputs into the recording's and replays it. The logits and tokens
+        of a replay hold until the next decode pass. Every other pass runs
+        ``_run_decode``'s eager pass."""
+        self._check_alloc("decode")
+        tier = self._decode_tier(n_active)
+        key = self._graph_key(kv, tier, tokens.shape[0])
+        if key is None:
+            logits, kv = self._decode_pass(tokens, kv, pos_vec, active,
+                                           n_active, tier)
+            return logits, kv, pick(logits[:, -1])
+        stamp = (tuple(t.data_ptr() for t in kv.values()), pick)
+        g = self._graphs.get(key)
+        if g is not None and g.stamp == stamp:
+            for dst, src in zip(g.inputs, (tokens, pos_vec, active)):
+                dst.copy_(src, non_blocking=True)
+            logits, nxt = g.replay()
+            self.stats.decode_graph_replays += 1
+            cudagraph.apply(self.stats, g.counts)
+            return logits, kv, nxt
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                       .copy_(t, non_blocking=True)
+                       for t in (tokens, pos_vec, active))
+
+        def run():
+            logits, _ = self._decode_pass(inputs[0], kv, inputs[1],
+                                          inputs[2], n_active, tier)
+            return logits, pick(logits[:, -1])
+
+        def captured():
+            with cudagraph.counts_discarded(self):
+                return run()
+        at = cudagraph.mark(self.stats)
+        logits, nxt = self.graph_capture.warm(self.device, run)
+        counts = cudagraph.since(self.stats, at)
+        self._graphs[key] = _Graph(
+            stamp, inputs, self.graph_capture.capture(self.device, captured),
+            counts)
+        self.stats.decode_graph_captures += 1
+        return logits, kv, nxt
+
+    def _graph_key(self, kv, tier: int, batch: int):
+        """``(tier, batch)``, the key a fused decode pass is graphed under,
+        or None where it cannot be captured: a device the capture does not
+        take, a paged cache (its pass maps pages on the host), an MoE model
+        (the route is read on the host), or a tier plan that streams or
+        copies at use any sub-layer (the prefetcher's host work). A graph
+        is also tied to the cache storage it writes and to the token pick
+        (``decode_fused``'s stamp), and ``rebind`` drops them all."""
+        if not self.graph_capture.supports(self.device) \
+                or isinstance(kv, PagedKVCache) or self.cfg.moe is not None:
+            return None
+        plan = self.schedule.tiers[tier].plan
+        if any(p.sub.name not in self._pinned_names for p in plan.placements
+               if p.sub.kind in PINNED_COMPUTE_KINDS):
+            return None
+        return tier, batch
+
+    def _decode_pass(self, tokens, kv, pos_vec, active, n_active: int,
+                     tier: int):
+        """``_run_decode``'s pass at ``tier``, after its fault point."""
+        tokens, pos_vec, active = (t.to(self.device, non_blocking=True)
+                                   for t in (tokens, pos_vec, active))
         paged = isinstance(kv, PagedKVCache)
         page_demand = self._prepare_pages(kv, pos_vec, active, 1) \
             if paged else 0
         by_name, streaming, started = self._begin_pass(
-            self.schedule.pick_decode_tier(
-                n_active, queue_depth=self.sched_queue_depth,
-                slack_s=self.sched_slack_s),
-            page_demand_bytes=page_demand)
+            tier, page_demand_bytes=page_demand)
         page_stream = paged and self._demand_active
         streamed_before = self.stats.streamed_bytes
         expert_before = (self.stats.expert_demanded, self.stats.expert_hits,
@@ -926,9 +1036,7 @@ class PipelinedExecutor:
         paged = isinstance(kv, PagedKVCache)
         page_demand = self._prepare_pages(kv, pos_vec, active, W) \
             if paged else 0
-        tier = self.schedule.pick_decode_tier(
-            n_active * W, queue_depth=self.sched_queue_depth,
-            slack_s=self.sched_slack_s)
+        tier = self._decode_tier(n_active * W)
         by_name, streaming, started = self._begin_pass(
             tier, page_demand_bytes=page_demand)
         page_stream = paged and self._demand_active

@@ -362,6 +362,7 @@ class ContinuousBatcher:
             return
         before = self.ex.stats.streamed_bytes
         moved_before = self.ex.stats.staged_bytes
+        replays = self.ex.stats.decode_graph_replays
         sp = trace.begin("serve.decode")
         try:
             if self.spec_k > 0:
@@ -376,21 +377,28 @@ class ContinuousBatcher:
         finally:
             if sp is not None:
                 trace.end(sp, n_active=len(active), mode=mode,
-                          tier=self.tier_log[-1])
+                          tier=self.tier_log[-1], graphed=replays
+                          != self.ex.stats.decode_graph_replays)
         self.iter_streamed_bytes.append(self.ex.stats.streamed_bytes - before)
         self.iter_moved_bytes.append(self.ex.stats.staged_bytes
                                      - moved_before)
 
     def _device_inputs(self, pos_vec, mask):
-        dev = self.device
-        return (torch.as_tensor(self.last_tokens).to(dev),
-                torch.as_tensor(pos_vec).to(dev),
-                torch.as_tensor(mask).to(dev))
+        """A decode pass's inputs: the (B, 1) last tokens, (B,) positions
+        and (B,) active mask. For a card, page-locked host tensors that the
+        executor copies without a wait (the caching host allocator hands a
+        block out again only once its copy has run)."""
+        host = (torch.as_tensor(self.last_tokens), torch.as_tensor(pos_vec),
+                torch.as_tensor(mask))
+        if self.device.type == "cuda":
+            return tuple(t.pin_memory() for t in host)
+        return host
 
     def _decode_fused(self, active: List[int]):
         """Fused multi-slot step: every active slot advances one token in a
         single batched pass; streamed sub-layers are fetched once for the
-        whole iteration."""
+        whole iteration. The executor replays the pass where it can be
+        recorded (``PipelinedExecutor.decode_fused``)."""
         pos_vec = np.zeros((self.max_batch,), np.int32)
         mask = np.zeros((self.max_batch,), bool)
         for i in active:
@@ -400,9 +408,10 @@ class ContinuousBatcher:
             len(active), queue_depth=self.ex.sched_queue_depth,
             slack_s=self.ex.sched_slack_s))
         tokens, pos_t, mask_t = self._device_inputs(pos_vec, mask)
-        logits, self.kv = self.ex._run_decode(tokens, self.kv, pos_t, mask_t,
-                                              n_active=len(active))
-        nxt = trace.to_host(greedy_token(logits[:, -1]), "tokens")
+        _, self.kv, nxt = self.ex.decode_fused(
+            tokens, self.kv, pos_t, mask_t, n_active=len(active),
+            pick=greedy_token)
+        nxt = trace.to_host(nxt, "tokens")
         for i in active:
             self._advance_guard(i, int(nxt[i]))
 

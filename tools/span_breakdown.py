@@ -17,7 +17,10 @@ worker's ``prefetch.slot_wait``, each counted in the pass its span
 starts in. It also gives the caching allocator's counters over the
 window (``torch.cuda.memory_stats``: retries after a failed allocation,
 ``cudaMalloc`` and ``cudaFree`` calls, each ``cudaFree`` of a cached
-block synchronizing the device). Needs the card, as a traced run does.
+block synchronizing the device), and the run's CUDA graphs of fused
+decode passes (``ExecStats.decode_graph_captures`` and ``_replays``)
+before the window and in it, beside the window's decode passes. Needs the
+card, as a traced run does.
 """
 from __future__ import annotations
 
@@ -129,6 +132,38 @@ def _allocator_over_window(devtrace):
     return got
 
 
+GRAPHS = ("decode_graph_captures", "decode_graph_replays", "decode_passes")
+
+
+def _graphs_over_window(devtrace):
+    """Wrap the executor's constructor to find the run's executors, and
+    ``devtrace``'s window start and end to read their graph counters;
+    returns the dict the readings land in."""
+    from repro_torch.core import executor
+    made, got = [], {}
+    init, start, reduce = (executor.PipelinedExecutor.__init__,
+                           devtrace.start, devtrace.reduce)
+
+    def init_(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def counters():
+        return {k: sum(getattr(e.stats, k, 0) for e in made) for k in GRAPHS}
+
+    def start_(*a, **kw):
+        got.update({f"{k}_before_window": v for k, v in counters().items()})
+        return start(*a, **kw)
+
+    def reduce_(*a, **kw):
+        got.update({f"{k}_in_window": v - got[f"{k}_before_window"]
+                    for k, v in counters().items()})
+        return reduce(*a, **kw)
+    executor.PipelinedExecutor.__init__ = init_
+    devtrace.start, devtrace.reduce = start_, reduce_
+    return got
+
+
 def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     from portbench import devtrace
@@ -140,6 +175,7 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     a = p.parse_args(argv)
     allocator = _allocator_over_window(devtrace)
+    graphs = _graphs_over_window(devtrace)
     rc = run_main(["--workload", a.workload, "--seed", str(a.seed),
                    "--seconds", str(a.seconds), "--trace", "1"],
                   t_process=T_PROCESS)
@@ -147,7 +183,7 @@ def main(argv=None) -> int:
         spans = trace.spans()
         print(json.dumps({"spans": breakdown(spans),
                           "kept": len(spans), "dropped": trace.dropped(),
-                          "allocator": allocator}))
+                          "allocator": allocator, "graphs": graphs}))
     return rc
 
 
